@@ -1,0 +1,384 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (simplepath_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py            # every phase, needs one CUDA device
+    python3 chip_smoke.py --spp 2 --phases kernels,parity
+
+Drives the port's main path — load_scene → render_image_sharded →
+render_rays → integrate_rrnee → PFM — on the bench scene
+(scenes/bunny_bench.sp: 327,680 triangles, 1024x1024, depth 10), through
+the two hand-written CUDA traversal kernels, and holds each kernel against
+its plain PyTorch version on the card.  Phases, one JSON line each:
+
+  device   card name and power limit (nvidia-smi), torch and CUDA versions
+  build    nvcc build of csrc/traverse.cu and g++ build of the BVH builder
+  kernels  closest/anyhit vs their plain versions at N=65,536 primary rays
+           and N=65,499 seeded incoherent rays (~10 % dead lanes): exact
+           valid/idx/occluded, t rtol 1e-5, beta/gamma rtol 1e-4; times
+  render   the full frame at --spp samples; launch counts per kernel
+  parity   128x128, 1 spp: kernels vs plain versions forced, on the card
+
+Any failed phase raises (non-zero exit).  Without a CUDA device the script
+exits non-zero before printing any result.  The last line of the output is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+SCENE = os.path.join(HERE, "scenes", "bunny_bench.sp")
+OUT_DIR = os.path.join(HERE, "chip_smoke_out")
+PHASES = ("device", "build", "kernels", "render", "parity")
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
+# float32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# Arithmetic of one visit, counted from csrc/traverse.cu: an internal row is
+# 8 slab tests (6 sub, 6 mul, 12 min/max, 3 compares each) plus the 19
+# compare-exchanges of the sorting network; a triangle test is 44 mul/add/sub,
+# one divide and 8 compares.
+FLOPS_INTERNAL_VISIT = 8 * 27 + 19
+FLOPS_TRIANGLE_TEST = 53
+TPU_KERNEL = {"closest": "simplepath_tpu/render/pallas_traverse.py:466",
+              "anyhit": "simplepath_tpu/render/pallas_traverse.py:503"}
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_cuda(fn, reps: int) -> float:
+    """Milliseconds per call of ``fn`` over ``reps`` calls (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def l2_read_rate(device) -> float:
+    """Bytes/s of a read-only pass over a 16 MB tensor that stays in L2 (a
+    library reduction, repeated): the yardstick for the kernels' row
+    traffic."""
+    x = torch.ones(4 << 20, dtype=torch.float32, device=device)
+    x.sum()
+    ms = time_cuda(lambda: x.sum(), 200)
+    return x.numel() * 4 / (ms * 1e-3)
+
+
+# ------------------------------------------------------------------ rays
+
+def primary_rays(scene, side: int = 256):
+    """side*side camera rays through a regular grid over the whole frame."""
+    from simplepath_tpu_torch.render.camera import generate_ray
+    dev = scene.device
+    st = scene.static
+    g = (torch.arange(side, device=dev, dtype=torch.float32) + 0.5)
+    ys, xs = torch.meshgrid(g * (st.height / side), g * (st.width / side),
+                            indexing="ij")
+    ro, rd = generate_ray(scene.camera, xs.reshape(-1), ys.reshape(-1))
+    n = ro.shape[0]
+    t_min = torch.full((n,), 1e-3, device=dev)
+    t_max = torch.full((n,), float("inf"), device=dev)
+    return ro.contiguous(), rd.contiguous(), t_min, t_max
+
+
+def incoherent_rays(scene, n: int = 65499, seed: int = 7):
+    """Seeded bounce-like rays: origins on the surfaces the primary rays hit
+    (drawn with replacement, so in no spatial order), uniform directions;
+    ~10 % dead lanes (t_max = -inf), the rest of finite or infinite reach;
+    N is deliberately not a multiple of 32."""
+    from simplepath_tpu_torch.render.traverse import scene_intersect_batch
+    ro, rd, t_min, t_max = primary_rays(scene)
+    hit = scene_intersect_batch(scene, ro, rd, t_min, t_max)
+    points = (ro + hit.t[:, None] * rd)[hit.valid].cpu().numpy()
+    rs = np.random.RandomState(seed)
+    origin = points[rs.randint(0, points.shape[0], n)].astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    direction = d / np.linalg.norm(d, axis=1, keepdims=True)
+    t_min = np.full(n, 1e-3, np.float32)
+    t_max = np.where(rs.rand(n) < 0.5, np.inf,
+                     0.5 + 4.0 * rs.rand(n)).astype(np.float32)
+    t_max[rs.rand(n) < 0.1] = -np.inf
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(scene.device)
+    return to(origin), to(direction), to(t_min), to(t_max)
+
+
+# --------------------------------------------------------------- phases
+
+def phase_device() -> dict:
+    smi = nvidia_smi_line()
+    emit("device", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count())
+    return {"nvidia_smi": smi}
+
+
+def phase_build() -> None:
+    from simplepath_tpu_torch import native
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+    t0 = time.time()
+    lib = ct.build_library(verbose=True)
+    kernel_s = time.time() - t0
+    t0 = time.time()
+    have_native = native.get_lib() is not None
+    native_s = time.time() - t0
+    ct._library()  # load and bind; raises if the library does not load
+    emit("build", kernel_library=os.path.relpath(lib, HERE),
+         kernel_build_s=kernel_s, native_bvh_builder=have_native,
+         native_build_s=native_s)
+
+
+def compare_case(kernel: str, case: str, records, rays) -> dict:
+    """One kernel on one ray set: mismatches against the plain version on
+    the card, times, and the work this ray set needs."""
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+    ro, rd, t_min, t_max = rays
+    n = ro.shape[0]
+    fn = ct.closest if kernel == "closest" else ct.anyhit
+    plain = ct.closest_plain if kernel == "closest" else ct.anyhit_plain
+
+    out = fn(records, ro, rd, t_min, t_max)      # warm-up launch
+    torch.cuda.synchronize()                     # surfaces a fault in the run
+    stats: dict = {}
+    ref = plain(records, ro, rd, t_min, t_max, stats=stats)
+    torch.cuda.synchronize()
+
+    res = {"kernel": kernel, "case": case, "n": n}
+    if kernel == "closest":
+        t, idx, beta, gamma, valid = out
+        rt, ridx, rbeta, rgamma, rvalid = ref
+        res["valid_mismatches"] = int((valid != rvalid).sum())
+        res["idx_mismatches"] = int((idx != ridx).sum())
+        h = rvalid & valid
+        close = lambda a, b, rtol, atol: int(
+            (~torch.isclose(a[h], b[h], rtol=rtol, atol=atol)).sum())
+        res["t_mismatches"] = close(t, rt, 1e-5, 1e-6)
+        res["beta_mismatches"] = close(beta, rbeta, 1e-4, 1e-5)
+        res["gamma_mismatches"] = close(gamma, rgamma, 1e-4, 1e-5)
+        res["miss_t_not_inf"] = int((~torch.isinf(t[~valid])).sum())
+        res["max_abs_err"] = float(torch.stack([
+            (t[h] - rt[h]).abs().max(), (beta[h] - rbeta[h]).abs().max(),
+            (gamma[h] - rgamma[h]).abs().max()]).max()) if bool(h.any()) else 0.0
+        res["hits"] = int(valid.sum())
+        out_bytes = n * (4 + 4 + 4 + 4 + 1)
+    else:
+        res["occ_mismatches"] = int((out != ref).sum())
+        res["max_abs_err"] = float(res["occ_mismatches"] > 0)
+        res["hits"] = int(out.sum())
+        out_bytes = n
+    bad = {k: v for k, v in res.items()
+           if (k.endswith("_mismatches") or k == "miss_t_not_inf") and v}
+    if bad:
+        raise AssertionError(f"kernel {kernel} disagrees with its plain "
+                             f"version on {case} rays: {bad}")
+
+    res["kernel_ms"] = time_cuda(lambda: fn(records, ro, rd, t_min, t_max), 20)
+    res["plain_ms"] = time_cuda(lambda: plain(records, ro, rd, t_min, t_max), 1)
+
+    rows = stats["internal_visits"] + stats["leaf_visits"]
+    in_bytes = records.numel() * 4 + n * (3 + 3 + 1 + 1) * 4
+    flops = (stats["internal_visits"] * FLOPS_INTERNAL_VISIT
+             + stats["triangle_tests"] * FLOPS_TRIANGLE_TEST)
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS * 1e3
+    res.update(stats, rows_visited=rows, row_bytes=rows * 512,
+               min_bytes=in_bytes + out_bytes, flops=flops,
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    return res
+
+
+def phase_kernels(scene) -> dict:
+    dev = scene.device
+    records = scene.bvh.records
+    l2_rate = l2_read_rate(dev)
+    ray_sets = {"primary": primary_rays(scene),
+                "incoherent": incoherent_rays(scene)}
+    results = {}
+    for kernel in ("closest", "anyhit"):
+        for case, rays in ray_sets.items():
+            res = compare_case(kernel, case, records, rays)
+            res["l2_read_GBps_measured"] = l2_rate / 1e9
+            res["row_traffic_ms"] = res["row_bytes"] / l2_rate * 1e3
+            res["row_GBps_achieved"] = (res["row_bytes"]
+                                        / (res["kernel_ms"] * 1e-3) / 1e9)
+            emit("kernels", **res)
+            results[(kernel, case)] = res
+    return results
+
+
+def phase_render(scene, spp: int, load_s: float, builder: str) -> tuple:
+    from simplepath_tpu_torch.core.rng import prng_key
+    from simplepath_tpu_torch.io.pfm import write_image
+    from simplepath_tpu_torch.parallel.mesh import render_image_sharded
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+
+    key = prng_key(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ct.reset_launch_counts()
+    t0 = time.time()
+    img = render_image_sharded(scene, spp, key)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    launches = dict(ct.launch_counts)
+
+    st = scene.static
+    if tuple(img.shape) != (st.height, st.width, 3):
+        raise AssertionError(f"image shape {tuple(img.shape)}")
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("render has non-finite pixels")
+    mean = float(img.mean())
+    if not mean > 0:
+        raise AssertionError(f"render mean {mean} is not positive")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"the render never launched kernel {name}")
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out_path = os.path.join(OUT_DIR, st.output_file_name)
+    write_image(out_path, img.cpu().numpy())
+    paths = st.width * st.height * spp
+    emit("render", scene=os.path.relpath(SCENE, HERE), width=st.width,
+         height=st.height, max_depth=st.max_depth, spp=spp,
+         triangles=st.num_triangles, record_rows=int(scene.bvh.records.shape[0]),
+         load_s=load_s, bvh_builder=builder, render_s=render_s,
+         camera_paths_per_s=paths / render_s, launches=launches,
+         image_mean=mean, output=os.path.relpath(out_path, HERE),
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    return launches
+
+
+def phase_parity(scene) -> None:
+    """128x128, 1 spp, same key: once through the kernels, once with the
+    plain versions forced, both on the card."""
+    from simplepath_tpu_torch.core.rng import prng_key
+    from simplepath_tpu_torch.parallel.mesh import render_image_sharded
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+
+    side = 128
+    wh = torch.tensor([side, side], dtype=torch.float32, device=scene.device)
+    small = dataclasses.replace(
+        scene,
+        static=dataclasses.replace(scene.static, width=side, height=side),
+        camera=dataclasses.replace(scene.camera, wh=wh))
+    key = prng_key(3)
+    ct.reset_launch_counts()
+    a = render_image_sharded(small, 1, key)
+    torch.cuda.synchronize()
+    launches = dict(ct.launch_counts)
+    t0 = time.time()
+    with ct.plain_versions():
+        b = render_image_sharded(small, 1, key)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    if dict(ct.launch_counts) != launches:
+        raise AssertionError("the plain-version render launched a kernel")
+    close = torch.isclose(a, b, rtol=1e-4, atol=1e-5)
+    emit("parity", side=side, spp=1, kernel_launches=launches,
+         plain_render_s=plain_s, mismatched_values=int((~close).sum()),
+         max_abs_diff=float((a - b).abs().max()), mean_kernels=float(a.mean()),
+         mean_plain=float(b.mean()))
+    if not bool(close.all()) or not float(a.mean()) > 0:
+        raise AssertionError("kernel render and plain-version render differ")
+
+
+def kernels_line(results: dict, launches: dict) -> dict:
+    """The summary object: one entry per kernel, times from the N=65,536
+    primary-ray case (the main path's chunk size), both cases under
+    ``cases``."""
+    entries = []
+    for kernel in ("closest", "anyhit"):
+        main = results[(kernel, "primary")]
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": "simplepath_tpu_torch/csrc/traverse.cu",
+            "replaces": TPU_KERNEL[kernel],
+            "launches": launches.get(kernel, 0),
+            "max_abs_err": max(results[(kernel, c)]["max_abs_err"]
+                               for c in ("primary", "incoherent")),
+            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "cases": [{k: results[(kernel, c)][k] for k in (
+                "case", "n", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "rows_visited", "row_traffic_ms", "row_GBps_achieved", "hits")}
+                for c in ("primary", "incoherent")],
+        })
+    return {"kernels": entries}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--spp", type=int, default=4,
+                    help="samples per pixel of the full-frame render")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false); this script runs on the GPU only", file=sys.stderr)
+        return 1
+
+    import simplepath_tpu_torch as sp
+    from simplepath_tpu_torch.scene import bvh
+
+    info = phase_device()
+    if "build" in phases:
+        phase_build()
+
+    t0 = time.time()
+    scene = sp.load_scene(SCENE)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+
+    results, launches = {}, {}
+    if "kernels" in phases:
+        results = phase_kernels(scene)
+    if "render" in phases:
+        launches = phase_render(scene, args.spp, load_s, bvh.LAST_BUILDER)
+    if "parity" in phases:
+        phase_parity(scene)
+
+    if results:
+        print(json.dumps(kernels_line(results, launches)), flush=True)
+    print(info["nvidia_smi"], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,448 @@
+"""BVH traversal over the unified record table: the two CUDA kernels'
+wrappers and, beside each, its plain PyTorch version.
+
+Counterpart of ``simplepath_tpu/render/pallas_traverse.py``:
+
+* :func:`closest`  ← ``packet_closest``: closest triangle hit per ray,
+  ``(t f32, tri_idx i32, beta f32, gamma f32, valid bool)``, a miss is
+  ``t=+inf, idx=-1``;
+* :func:`anyhit`   ← ``packet_anyhit``: occlusion per ray, ``bool[N]``.
+
+The kernels are hand-written CUDA C++ (``csrc/traverse.cu``): one thread per
+ray with its own stack — the per-ray semantics of the JAX package's
+``_bvh_closest`` / ``_bvh_any``, including their tie rules (an equal-t hit
+found later does NOT replace the earlier one; children are ordered
+far-to-near by the ray's own unclamped ``tnear`` through the 19-pair Batcher
+network).  They are built with ``nvcc`` at first use into the package's
+ignored ``build/`` directory and loaded with ctypes; nothing is built or
+imported from CUDA when this module is imported.
+
+Dispatch rule: a CUDA tensor goes to the kernel, or the call raises — there
+is no fallback from kernel to plain version.  A CPU tensor goes to the plain
+version.  :func:`plain_versions` is an explicit override for comparisons
+(tests, ``chip_smoke.py``), never used by the render path on its own.
+
+Both functions are detached from autograd, like the kernels they replace.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import os
+import subprocess
+
+import torch
+from torch import Tensor
+
+from ..scene.bvh import LEAF_ROWS, LEAF_SIZE, RECORD_WIDTH, WIDTH
+
+__all__ = ["closest", "anyhit", "closest_plain", "anyhit_plain",
+           "launch_counts", "reset_launch_counts", "plain_versions",
+           "build_library", "batcher_pairs", "STACK_DEPTH"]
+
+# Per-ray stack capacity of the kernels and the plain versions; worst case
+# is depth*(W-1)+1 entries, and scene/bvh.py::pack_records asserts that a
+# table fits before it is ever traversed.
+STACK_DEPTH = 64
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_HERE)
+KERNEL_SOURCE = os.path.join(_PKG, "csrc", "traverse.cu")
+BUILD_DIR = os.path.join(_PKG, "build")
+_LIB_PATH = os.path.join(BUILD_DIR, "libsp_traverse.so")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+# launches per kernel: +1 exactly where a wrapper launches its kernel
+launch_counts = {"closest": 0, "anyhit": 0}
+
+_lib = None
+_force_plain = False
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Run the plain PyTorch versions even on CUDA tensors, inside the
+    ``with`` block — for holding the kernels against them."""
+    global _force_plain
+    prev, _force_plain = _force_plain, True
+    try:
+        yield
+    finally:
+        _force_plain = prev
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []) \
+            + ["/usr/local/cuda/bin/nvcc"]:
+        if os.path.exists(cand):
+            return cand
+    return "nvcc"  # on PATH, or the build raises
+
+
+def build_library(verbose: bool = False) -> str:
+    """Compile ``csrc/traverse.cu`` for sm_90a into ``build/`` unless an
+    up-to-date library is there; returns its path.  Raises if nvcc fails."""
+    if (os.path.exists(_LIB_PATH)
+            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(KERNEL_SOURCE)):
+        return _LIB_PATH
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) \
+        + ["-o", tmp, KERNEL_SOURCE]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, _LIB_PATH)
+    if verbose:
+        print(proc.stderr.strip())
+    return _LIB_PATH
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build_library())
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sp_closest.restype = i
+        lib.sp_closest.argtypes = [p, p, p, p, p, i, p, p, p, p, p, p]
+        lib.sp_anyhit.restype = i
+        lib.sp_anyhit.argtypes = [p, p, p, p, p, i, p, p]
+        _lib = lib
+    return _lib
+
+
+def _check_inputs(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
+                  t_max: Tensor) -> int:
+    """Shapes, dtypes, devices and layout both paths rely on; returns N."""
+    if (WIDTH, LEAF_SIZE, LEAF_ROWS, RECORD_WIDTH) != (8, 12, 1, 128):
+        raise NotImplementedError(
+            "traversal supports the default BVH topology only (WIDTH=8, "
+            f"LEAF_SIZE=12); got WIDTH={WIDTH}, LEAF_SIZE={LEAF_SIZE}")
+    if records.dim() != 2 or records.shape[1] != RECORD_WIDTH:
+        raise ValueError(f"records must be [M,{RECORD_WIDTH}], got "
+                         f"{tuple(records.shape)}")
+    n = ro.shape[0]
+    if ro.shape != (n, 3) or rd.shape != (n, 3):
+        raise ValueError(f"ro/rd must be [N,3], got {tuple(ro.shape)} and "
+                         f"{tuple(rd.shape)}")
+    if t_min.shape != (n,) or t_max.shape != (n,):
+        raise ValueError(f"t_min/t_max must be [N]={n}, got "
+                         f"{tuple(t_min.shape)} and {tuple(t_max.shape)}")
+    for name, x in (("records", records), ("ro", ro), ("rd", rd),
+                    ("t_min", t_min), ("t_max", t_max)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.device != records.device:
+            raise ValueError(f"{name} is on {x.device}, records on "
+                             f"{records.device}")
+    return n
+
+
+def _check_kernel_layout(**tensors: Tensor) -> None:
+    for name, x in tensors.items():
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the CUDA kernel")
+    if tensors["records"].data_ptr() % 16 != 0:
+        raise ValueError("records must be 16-byte aligned (rows are read as "
+                         "float4)")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed to launch: "
+                           f"cudaError {err}")
+
+
+def closest(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
+            t_max: Tensor):
+    """Closest triangle hit for a flat ray batch.
+
+    records: f32[M,128] unified BVH table; ro/rd: f32[N,3]; t_min/t_max:
+    f32[N], any N ≥ 0.  Returns (t, tri_idx i32, beta, gamma, valid bool),
+    each [N]; misses carry t=+inf, tri_idx=-1.  Lanes with a collapsed
+    interval (t_max=-inf) miss after one row visit.
+    """
+    n = _check_inputs(records, ro, rd, t_min, t_max)
+    records, ro, rd = records.detach(), ro.detach(), rd.detach()
+    t_min, t_max = t_min.detach(), t_max.detach()
+    if records.device.type != "cuda" or _force_plain:
+        return closest_plain(records, ro, rd, t_min, t_max)
+    _check_kernel_layout(records=records, ro=ro, rd=rd, t_min=t_min, t_max=t_max)
+    dev = records.device
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    beta = torch.empty(n, dtype=torch.float32, device=dev)
+    gamma = torch.empty(n, dtype=torch.float32, device=dev)
+    valid = torch.empty(n, dtype=torch.uint8, device=dev)
+    if n == 0:
+        return t, idx, beta, gamma, valid.bool()
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.sp_closest(records.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+                             t_min.data_ptr(), t_max.data_ptr(), n,
+                             t.data_ptr(), idx.data_ptr(), beta.data_ptr(),
+                             gamma.data_ptr(), valid.data_ptr(),
+                             torch.cuda.current_stream(dev).cuda_stream)
+    launch_counts["closest"] += 1
+    _raise_on(err, "sp_closest")
+    return t, idx, beta, gamma, valid.bool()
+
+
+def anyhit(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
+           t_max: Tensor) -> Tensor:
+    """Occlusion for a flat ray batch: bool[N], true where any triangle hits
+    with t in [t_min, t_max] (the kernel returns at the first hit)."""
+    n = _check_inputs(records, ro, rd, t_min, t_max)
+    records, ro, rd = records.detach(), ro.detach(), rd.detach()
+    t_min, t_max = t_min.detach(), t_max.detach()
+    if records.device.type != "cuda" or _force_plain:
+        return anyhit_plain(records, ro, rd, t_min, t_max)
+    _check_kernel_layout(records=records, ro=ro, rd=rd, t_min=t_min, t_max=t_max)
+    dev = records.device
+    occ = torch.empty(n, dtype=torch.uint8, device=dev)
+    if n == 0:
+        return occ.bool()
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.sp_anyhit(records.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+                            t_min.data_ptr(), t_max.data_ptr(), n,
+                            occ.data_ptr(),
+                            torch.cuda.current_stream(dev).cuda_stream)
+    launch_counts["anyhit"] += 1
+    _raise_on(err, "sp_anyhit")
+    return occ.bool()
+
+
+# ------------------------------------------------------- plain versions
+#
+# The port of _bvh_closest/_bvh_any with the batch dimension written out: a
+# lock-step masked loop over the whole batch — a per-ray [N,64] stack tensor
+# and sp, ONE row gather per iteration, both row interpretations computed
+# and selected by the tag, until every sp == 0 (any-hit: or found).
+
+def batcher_pairs(n: int) -> tuple[tuple[int, int], ...]:
+    """Batcher odd-even mergesort compare-exchange network for n lanes
+    (n a power of two): 19 CEs at n=8."""
+    def merge(lo, hi, r):
+        step = r * 2
+        if step < hi - lo:
+            yield from merge(lo, hi, step)
+            yield from merge(lo + r, hi, step)
+            for i in range(lo + r, hi - r, step):
+                yield (i, i + r)
+        else:
+            yield (lo, lo + r)
+
+    def sort(lo, hi):
+        if hi - lo >= 1:
+            mid = lo + (hi - lo) // 2
+            yield from sort(lo, mid)
+            yield from sort(mid + 1, hi)
+            yield from merge(lo, hi, 1)
+
+    return tuple(sort(0, n - 1))
+
+
+_SORTW_PAIRS = batcher_pairs(WIDTH)
+_NEG_BIG = -3.0e38
+_INF = float("inf")
+
+
+def _sortw_desc(keys: Tensor, vals: Tensor) -> tuple[Tensor, Tensor]:
+    """Sort the W (key, val) columns of [N,W] tensors descending by key via
+    the sorting network (ties keep the network's order, as in the kernel)."""
+    k = list(keys.unbind(1))
+    v = list(vals.unbind(1))
+    for a, b in _SORTW_PAIRS:
+        swap = k[a] < k[b]
+        k[a], k[b] = torch.where(swap, k[b], k[a]), torch.where(swap, k[a], k[b])
+        v[a], v[b] = torch.where(swap, v[b], v[a]), torch.where(swap, v[a], v[b])
+    return torch.stack(k, 1), torch.stack(v, 1)
+
+
+def _visit_internal(rec, is_leaf, ro, inv_d, t_min, cur_t_max):
+    """Slab-test the W children of each lane's row and pack the hit child
+    refs far-to-near (LIFO stack → nearest pops first).  torch.minimum /
+    maximum propagate NaN, which culls a child whose slab product is NaN.
+
+    Returns (packed_refs [N,W] int64, n_push [N])."""
+    W = WIDTH
+    t0x = (rec[:, 0:W] - ro[:, 0:1]) * inv_d[:, 0:1]
+    t0y = (rec[:, W:2 * W] - ro[:, 1:2]) * inv_d[:, 1:2]
+    t0z = (rec[:, 2 * W:3 * W] - ro[:, 2:3]) * inv_d[:, 2:3]
+    t1x = (rec[:, 3 * W:4 * W] - ro[:, 0:1]) * inv_d[:, 0:1]
+    t1y = (rec[:, 4 * W:5 * W] - ro[:, 1:2]) * inv_d[:, 1:2]
+    t1z = (rec[:, 5 * W:6 * W] - ro[:, 2:3]) * inv_d[:, 2:3]
+    mn, mx = torch.minimum, torch.maximum
+    tnear = mx(mx(mn(t0x, t1x), mn(t0y, t1y)), mn(t0z, t1z))
+    tfar = mn(mn(mx(t0x, t1x), mx(t0y, t1y)), mx(t0z, t1z))
+    box_hit = (mx(tnear, t_min[:, None]) <= mn(tfar, cur_t_max[:, None])) \
+        & (tfar >= t_min[:, None])
+    cref = rec[:, 6 * W:7 * W].to(torch.int64)   # refs are exact f32 values
+    push = box_hit & (cref != 0) & ~is_leaf[:, None]
+    key = torch.where(push, tnear, -_INF)
+    skey, packed = _sortw_desc(key, cref)
+    n_push = (skey > _NEG_BIG).sum(dim=1)
+    return packed, n_push
+
+
+def _visit_leaf(rec, ro, rd, t_min, cur_t_max):
+    """Shirley barycentric test on each lane's leaf row (≤K triangles; A,B,C
+    / D,E,F are the precomputed v0-v1 / v0-v2 edges).  One reciprocal and
+    three multiplies, in the kernel's operation order.
+
+    Returns (t, beta, gamma, valid, tri_idx), each [N,K]."""
+    K = LEAF_SIZE
+    v0x, v0y, v0z = rec[:, 0:K], rec[:, K:2 * K], rec[:, 2 * K:3 * K]
+    A, B, C = rec[:, 3 * K:4 * K], rec[:, 4 * K:5 * K], rec[:, 5 * K:6 * K]
+    D, E, F = rec[:, 6 * K:7 * K], rec[:, 7 * K:8 * K], rec[:, 8 * K:9 * K]
+    base = (rec[:, 9 * K + 1].to(torch.int64) << 12) + rec[:, 9 * K].to(torch.int64)
+    lane = torch.arange(K, dtype=torch.int64, device=rec.device)
+    tri_idx = base[:, None] + lane
+    in_leaf = lane < rec[:, 9 * K + 2].to(torch.int64)[:, None]
+    G, H, I = rd[:, 0:1], rd[:, 1:2], rd[:, 2:3]
+    J = v0x - ro[:, 0:1]
+    Kk = v0y - ro[:, 1:2]
+    L = v0z - ro[:, 2:3]
+
+    EIHF = E * I - H * F
+    GFDI = G * F - D * I
+    DHEG = D * H - E * G
+    denom = A * EIHF + B * GFDI + C * DHEG
+    inv = 1.0 / torch.where(denom == 0.0, 1.0, denom)
+    beta = (J * EIHF + Kk * GFDI + L * DHEG) * inv
+    AKJB = A * Kk - J * B
+    JCAL = J * C - A * L
+    BLKC = B * L - Kk * C
+    gamma = (I * AKJB + H * JCAL + G * BLKC) * inv
+    t = -(F * AKJB + E * JCAL + D * BLKC) * inv
+    valid = ((denom != 0.0) & in_leaf
+             & (beta > 0.0) & (beta < 1.0)
+             & (gamma > 0.0) & (beta + gamma < 1.0)
+             & (t >= t_min[:, None]) & (t <= cur_t_max[:, None]))
+    return t, beta, gamma, valid, tri_idx
+
+
+def _pop(records, stack, sp, active):
+    """Pop each active lane's top ref and gather its row (inactive lanes
+    read the root row; all their results are masked)."""
+    ar = torch.arange(sp.shape[0], device=sp.device)
+    ref = torch.where(active, stack[ar, torch.clamp_min(sp - 1, 0)], 1)
+    sp = torch.where(active, sp - 1, sp)
+    return ref, sp, records[torch.abs(ref) - 1]
+
+
+def _push(stack, sp, packed, n_push):
+    """Write packed[n, 0:n_push[n]] at stack[n, sp[n]:...] by real indexing."""
+    sp_safe = torch.clamp_max(sp, STACK_DEPTH - WIDTH)
+    slot = torch.arange(WIDTH, device=sp.device)
+    sel = slot[None, :] < n_push[:, None]
+    rows = torch.arange(sp.shape[0], device=sp.device)[:, None].expand_as(sel)
+    stack[rows[sel], (sp_safe[:, None] + slot)[sel]] = packed[sel]
+    return sp_safe + n_push
+
+
+def _init_stack(n: int, device):
+    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=device)
+    stack[:, 0] = 1                                   # root ref = +1
+    return stack, torch.ones(n, dtype=torch.int64, device=device)
+
+
+def _add_stats(stats: dict, n_internal: int, n_leaf: int, n_tris: int) -> None:
+    for name, v in (("internal_visits", n_internal), ("leaf_visits", n_leaf),
+                    ("triangle_tests", n_tris)):
+        stats[name] = stats.get(name, 0) + v
+
+
+def closest_plain(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
+                  t_max: Tensor, stats: dict | None = None):
+    """Plain PyTorch version of :func:`closest` (same outputs).  With a
+    ``stats`` dict, adds the number of internal rows, leaf rows and leaf
+    triangles visited, summed over rays — the kernel visits the same rows in
+    the same order."""
+    n = _check_inputs(records, ro, rd, t_min, t_max)
+    dev = records.device
+    inv_d = 1.0 / rd   # IEEE inf for zero components is fine for slabs
+    stack, sp = _init_stack(n, dev)
+    best_valid = torch.zeros(n, dtype=torch.bool, device=dev)
+    best_t = torch.full((n,), _INF, dtype=torch.float32, device=dev)
+    best_idx = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best_beta = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_gamma = torch.zeros(n, dtype=torch.float32, device=dev)
+    n_internal = n_leaf = n_tris = 0
+
+    while True:
+        active = sp > 0
+        if not bool(active.any()):
+            break
+        ref, sp, rec = _pop(records, stack, sp, active)
+        is_leaf = ref < 0
+        cur_t_max = torch.minimum(t_max, torch.where(best_valid, best_t, _INF))
+
+        packed, n_push = _visit_internal(rec, is_leaf, ro, inv_d, t_min, cur_t_max)
+        t, beta, gamma, valid, tri_idx = _visit_leaf(rec, ro, rd, t_min, cur_t_max)
+        valid = valid & (is_leaf & active)[:, None]
+        j = torch.where(valid, t, _INF).argmin(dim=1, keepdim=True)  # first min
+        c_valid = valid.gather(1, j)[:, 0]
+        c_t = t.gather(1, j)[:, 0]
+        # _closer(best, cand): the earlier hit wins an equal-t tie
+        tb = torch.where(c_valid, c_t, _INF)
+        take_new = ~(torch.where(best_valid, best_t, _INF) <= tb)
+        best_t = torch.where(take_new, c_t, best_t)
+        best_idx = torch.where(take_new, tri_idx.gather(1, j)[:, 0], best_idx)
+        best_beta = torch.where(take_new, beta.gather(1, j)[:, 0], best_beta)
+        best_gamma = torch.where(take_new, gamma.gather(1, j)[:, 0], best_gamma)
+        best_valid = best_valid | c_valid
+
+        sp = _push(stack, sp, packed, torch.where(active, n_push, 0))
+        if stats is not None:
+            at_leaf = is_leaf & active
+            n_leaf += int(at_leaf.sum())
+            n_internal += int((~is_leaf & active).sum())
+            n_tris += int(rec[at_leaf, 9 * LEAF_SIZE + 2].sum())
+
+    if stats is not None:
+        _add_stats(stats, n_internal, n_leaf, n_tris)
+    return best_t, best_idx.to(torch.int32), best_beta, best_gamma, best_valid
+
+
+def anyhit_plain(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
+                 t_max: Tensor, stats: dict | None = None) -> Tensor:
+    """Plain PyTorch version of :func:`anyhit`; a lane stops at its first
+    hit.  ``stats`` as in :func:`closest_plain`."""
+    n = _check_inputs(records, ro, rd, t_min, t_max)
+    dev = records.device
+    inv_d = 1.0 / rd
+    stack, sp = _init_stack(n, dev)
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    n_internal = n_leaf = n_tris = 0
+
+    while True:
+        active = (sp > 0) & ~found
+        if not bool(active.any()):
+            break
+        ref, sp, rec = _pop(records, stack, sp, active)
+        is_leaf = ref < 0
+        packed, n_push = _visit_internal(rec, is_leaf, ro, inv_d, t_min, t_max)
+        valid = _visit_leaf(rec, ro, rd, t_min, t_max)[3]
+        found = found | (valid.any(dim=1) & is_leaf & active)
+        sp = _push(stack, sp, packed, torch.where(active, n_push, 0))
+        if stats is not None:
+            at_leaf = is_leaf & active
+            n_leaf += int(at_leaf.sum())
+            n_internal += int((~is_leaf & active).sum())
+            n_tris += int(rec[at_leaf, 9 * LEAF_SIZE + 2].sum())
+
+    if stats is not None:
+        _add_stats(stats, n_internal, n_leaf, n_tris)
+    return found
