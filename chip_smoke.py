@@ -12,9 +12,11 @@ its plain PyTorch version on the card.  Phases, one JSON line each:
 
   device   card name and power limit (nvidia-smi), torch and CUDA versions
   build    nvcc build of csrc/traverse.cu and g++ build of the BVH builder
-  kernels  closest/anyhit vs their plain versions at N=65,536 primary rays
-           and N=65,499 seeded incoherent rays (~10 % dead lanes): exact
-           valid/idx/occluded, t rtol 1e-5, beta/gamma rtol 1e-4; times
+  kernels  closest/anyhit vs their plain versions at N=65,536 primary rays,
+           N=65,499 seeded incoherent rays (~10 % dead lanes) and the real
+           wavefronts of bounces 0, 2 and 5 of one rendered 65,536-ray chunk:
+           exact valid/idx/occluded, t rtol 1e-5, beta/gamma rtol 1e-4;
+           times, visits a ray, lane-step shares, bytes the visits read
   render   the full frame at --spp samples; launch counts per kernel
   parity   128x128, 1 spp: kernels vs plain versions forced, on the card
 
@@ -53,6 +55,12 @@ FP32_FLOPS = 67e12
 # one divide and 8 compares.
 FLOPS_INTERNAL_VISIT = 8 * 27 + 19
 FLOPS_TRIANGLE_TEST = 53
+# Bytes the kernels' loads ask for on one visit (csrc/traverse.cu): the 7
+# fields of the 8 children of an internal row; of a leaf row its 16 B of meta
+# and the 9 fields of all 12 triangle slots, whatever the leaf's count.
+INTERNAL_VISIT_BYTES = 7 * 8 * 4
+LEAF_VISIT_BYTES = 16 + 12 * 9 * 4
+BOUNCES = (0, 2, 5)
 TPU_KERNEL = {"closest": "simplepath_tpu/render/pallas_traverse.py:466",
               "anyhit": "simplepath_tpu/render/pallas_traverse.py:503"}
 
@@ -68,17 +76,40 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_cuda(fn, reps: int) -> float:
-    """Milliseconds per call of ``fn`` over ``reps`` calls (CUDA events)."""
+# Cycles the card spins before a timed run of launches (~10 ms): the host
+# queues them all meanwhile, so the events bracket device time only.  A
+# kernel of 30 us is shorter than its wrapper's time on the host.
+RUN_AHEAD_CYCLES = 20_000_000
+RUN_AHEAD_TRIES = 4
+
+
+def time_cuda(fn, reps: int, run_ahead: bool = True) -> float:
+    """Milliseconds per call of ``fn`` over ``reps`` calls (CUDA events).
+    With ``run_ahead`` the calls must not wait for the device, and the card
+    spins while the host queues them; if the spin ended before the host was
+    done, the events would hold host time, so the run is made again with
+    twice the spin, and raises after RUN_AHEAD_TRIES.  A function that
+    synchronises is timed with ``run_ahead=False``."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    spun = torch.cuda.Event()
+    for attempt in range(RUN_AHEAD_TRIES if run_ahead else 1):
+        torch.cuda.synchronize()
+        if run_ahead:
+            torch.cuda._sleep(RUN_AHEAD_CYCLES << attempt)
+        spun.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_in_time = not (run_ahead and spun.query())
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / reps
+    raise RuntimeError(
+        f"the host did not queue {reps} launches while the card spun "
+        f"{RUN_AHEAD_CYCLES << (RUN_AHEAD_TRIES - 1)} cycles: the events "
+        "would include host time")
 
 
 def l2_read_rate(device) -> float:
@@ -127,6 +158,57 @@ def incoherent_rays(scene, n: int = 65499, seed: int = 7):
     t_max[rs.rand(n) < 0.1] = -np.inf
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(scene.device)
     return to(origin), to(direction), to(t_min), to(t_max)
+
+
+def bounce_rays(scene, rows: tuple = (480, 544)) -> dict:
+    """The integrator's own wavefronts: render one chunk (``rows`` of the
+    frame: 65,536 rays of the bench scene, 1 spp) with the two wrappers
+    wrapped here so that the inputs of their calls of bounces BOUNCES are
+    kept.  One render at 1 spp calls each wrapper once a bounce.  Returns
+    {"closest": {case: rays}, "anyhit": {case: rays}}."""
+    import simplepath_tpu_torch as sp
+    from simplepath_tpu_torch.core.rng import prng_key
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+
+    kept = {"closest": {}, "anyhit": {}}
+    calls = {"closest": 0, "anyhit": 0}
+    originals = {name: getattr(ct, name) for name in kept}
+
+    def keeping(name):
+        def wrapped(records, ro, rd, t_min, t_max):
+            if calls[name] in BOUNCES:
+                kept[name][f"bounce{calls[name]}"] = tuple(
+                    x.clone() for x in (ro, rd, t_min, t_max))
+            calls[name] += 1
+            return originals[name](records, ro, rd, t_min, t_max)
+        return wrapped
+
+    for name in kept:
+        setattr(ct, name, keeping(name))
+    try:
+        w = scene.static.width
+        lin = torch.arange(rows[0] * w, rows[1] * w, device=scene.device)
+        sp.render_rays(scene, lin % w, lin // w, 1, prng_key(1))
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(ct, name, fn)
+    for name, cases in kept.items():
+        if len(cases) != len(BOUNCES):
+            raise AssertionError(f"the chunk render called {name} "
+                                 f"{calls[name]} times; bounces {BOUNCES} "
+                                 "were not all reached")
+    return kept
+
+
+def lane_step_share(visits: torch.Tensor, rays_per_warp: int) -> float:
+    """Share of a warp's lane-steps that do a ray's own visit when
+    ``rays_per_warp`` neighbouring rays walk in lock step and the warp runs
+    as long as its slowest ray: sum(visits) / sum(group size * group max)."""
+    pad = -visits.numel() % rays_per_warp
+    v = torch.nn.functional.pad(visits, (0, pad)).reshape(-1, rays_per_warp)
+    paid = int(v.max(dim=1).values.sum()) * rays_per_warp
+    return int(visits.sum()) / paid if paid else 1.0
 
 
 # --------------------------------------------------------------- phases
@@ -198,16 +280,43 @@ def compare_case(kernel: str, case: str, records, rays) -> dict:
         raise AssertionError(f"kernel {kernel} disagrees with its plain "
                              f"version on {case} rays: {bad}")
 
-    res["kernel_ms"] = time_cuda(lambda: fn(records, ro, rd, t_min, t_max), 20)
-    res["plain_ms"] = time_cuda(lambda: plain(records, ro, rd, t_min, t_max), 1)
+    res["kernel_ms"] = time_cuda(lambda: fn(records, ro, rd, t_min, t_max), 50)
+    res["plain_ms"] = time_cuda(lambda: plain(records, ro, rd, t_min, t_max), 1,
+                                run_ahead=False)
 
-    rows = stats["internal_visits"] + stats["leaf_visits"]
-    in_bytes = records.numel() * 4 + n * (3 + 3 + 1 + 1) * 4
-    flops = (stats["internal_visits"] * FLOPS_INTERNAL_VISIT
+    # per-ray visit counts of the plain version, which walks the same rows:
+    # how long the chains are, and what lock step costs when 32 rays share a
+    # warp (one thread a ray) and when 32 / lanes_per_ray do
+    # (a ray with an empty interval pops the root in the plain version and
+    # walks nothing in the kernel: it counts no visit here)
+    dead = t_max < t_min
+    visits = stats.pop("ray_internal_visits") + stats.pop("ray_leaf_visits")
+    visits = torch.where(dead, 0, visits)
+    res.update(dead_rays=int(dead.sum()),
+               visits_per_ray_mean=float(visits.float().mean()),
+               visits_per_ray_max=int(visits.max()),
+               lane_step_share_32_rays_a_warp=lane_step_share(visits, 32),
+               lane_step_share_4_rays_a_warp=lane_step_share(visits, 4))
+
+    # The least this run's rays ask of the card.  Bytes: each table row that
+    # a live ray visits is read once, at what a visit of its kind reads, the
+    # rays once, the results written once.  Operations: every visit's
+    # arithmetic.  The root pops of dead rays count in neither.
+    internal_visits = stats["internal_visits"] - res["dead_rays"]
+    distinct_internal = int(stats.pop("internal_rows_visited").sum())
+    distinct_leaf = int(stats.pop("leaf_rows_visited").sum())
+    table_bytes = (distinct_internal * INTERNAL_VISIT_BYTES
+                   + distinct_leaf * LEAF_VISIT_BYTES)
+    in_bytes = table_bytes + n * (3 + 3 + 1 + 1) * 4
+    flops = (internal_visits * FLOPS_INTERNAL_VISIT
              + stats["triangle_tests"] * FLOPS_TRIANGLE_TEST)
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS * 1e3
-    res.update(stats, rows_visited=rows, row_bytes=rows * 512,
+    res.update(stats, rows_visited=internal_visits + stats["leaf_visits"],
+               distinct_internal_rows=distinct_internal,
+               distinct_leaf_rows=distinct_leaf, table_bytes=table_bytes,
+               row_bytes=internal_visits * INTERNAL_VISIT_BYTES
+               + stats["leaf_visits"] * LEAF_VISIT_BYTES,
                min_bytes=in_bytes + out_bytes, flops=flops,
                bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
@@ -220,9 +329,10 @@ def phase_kernels(scene) -> dict:
     l2_rate = l2_read_rate(dev)
     ray_sets = {"primary": primary_rays(scene),
                 "incoherent": incoherent_rays(scene)}
+    bounces = bounce_rays(scene)
     results = {}
     for kernel in ("closest", "anyhit"):
-        for case, rays in ray_sets.items():
+        for case, rays in {**ray_sets, **bounces[kernel]}.items():
             res = compare_case(kernel, case, records, rays)
             res["l2_read_GBps_measured"] = l2_rate / 1e9
             res["row_traffic_ms"] = res["row_bytes"] / l2_rate * 1e3
@@ -311,25 +421,31 @@ def phase_parity(scene) -> None:
 
 def kernels_line(results: dict, launches: dict) -> dict:
     """The summary object: one entry per kernel, times from the N=65,536
-    primary-ray case (the main path's chunk size), both cases under
+    primary-ray case (the main path's chunk size), every ray set under
     ``cases``."""
+    from simplepath_tpu_torch.render.cuda_traverse import LANES_PER_RAY
     entries = []
     for kernel in ("closest", "anyhit"):
         main = results[(kernel, "primary")]
+        cases = [c for k, c in results if k == kernel]
         entries.append({
             "name": kernel, "route": "cuda",
             "source": "simplepath_tpu_torch/csrc/traverse.cu",
             "replaces": TPU_KERNEL[kernel],
             "launches": launches.get(kernel, 0),
             "max_abs_err": max(results[(kernel, c)]["max_abs_err"]
-                               for c in ("primary", "incoherent")),
+                               for c in cases),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "lanes_per_ray": LANES_PER_RAY,
             "cases": [{k: results[(kernel, c)][k] for k in (
                 "case", "n", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "rows_visited", "row_traffic_ms", "row_GBps_achieved", "hits")}
-                for c in ("primary", "incoherent")],
+                "rows_visited", "distinct_internal_rows", "distinct_leaf_rows",
+                "table_bytes", "row_traffic_ms", "row_GBps_achieved", "hits",
+                "dead_rays", "visits_per_ray_mean", "visits_per_ray_max",
+                "lane_step_share_32_rays_a_warp",
+                "lane_step_share_4_rays_a_warp")}
+                for c in cases],
         })
     return {"kernels": entries}
 

@@ -2,42 +2,66 @@
 // over the unified f32[M,128] record table (row layout: scene/bvh.py).
 //
 // Replaces the two Pallas TPU kernels of the JAX package,
-//   simplepath_tpu/render/pallas_traverse.py::packet_closest  (sp_closest)
-//   simplepath_tpu/render/pallas_traverse.py::packet_anyhit   (sp_anyhit)
+//   sp_closest  <-  simplepath_tpu/render/pallas_traverse.py::packet_closest
+//   sp_anyhit   <-  simplepath_tpu/render/pallas_traverse.py::packet_anyhit
 // and computes, ray for ray, what the JAX package's per-ray formulation
 // (render/traverse.py::_bvh_closest / _bvh_any) computes: same visit order,
 // same slab and Shirley arithmetic, same tie rules.  The plain PyTorch
 // versions beside the wrappers (render/cuda_traverse.py: closest_plain,
 // anyhit_plain) are the same algorithm with the batch written out.
 //
-// What is NOT carried over from the TPU design: the 1024-ray packet with one
-// shared stack, the scalar-core stack and the double-buffered row DMA exist
-// there because a TPU has no per-lane control flow.  A GPU thread has its
-// own: ONE THREAD PER RAY, a private stack of refs, a while loop.
+// What bounds it on this card.  Not device memory: the table of a few
+// hundred thousand triangles (~16 MB) sits in the 50 MB L2 and a ray moves
+// 32 B in and 17 B out, so the byte bound of a 65,536-ray launch is ~6 us.
+// A launch is a wavefront of at most 65,536 rays, each a serial chain of
+// dependent row visits (6-18 a ray on average, 30-60 for the longest ray of
+// a wavefront).  A full wavefront is bound by instruction rate: the visits'
+// arithmetic, and a warp whose rays stand on rows of both kinds runs both
+// branches.  A late bounce, where a few hundred rays still live, is bound by
+// its longest chain at well under a microsecond a visit.
 //
-// What bounds it on this card: not device-memory bandwidth — the table of a
-// few hundred thousand triangles (~18 MB) sits in the 50 MB L2, and each ray
-// only moves 32 B in and 17 B out.  The cost is L2/L1 traffic for the
-// 512-byte rows (one per visit per ray) and warp divergence (rays of a warp
-// popping different rows, or leaf vs internal rows, serialize).  What the
-// design does about it: rows are read through the read-only path as 16-byte
-// vectors so a warp whose rays visit the same row is served by one L1 line
-// fetch per 128 B; children are visited near-to-far so the shrinking best-t
-// front culls most of the tree; and the integrator sorts rays between
-// bounces (render/integrators.py::_coherence_order) so a warp's rays stay on
-// neighbouring rows.  The stack (64 ints) lives in local memory, which L1
-// caches.
+// What the design does about it: G = 8 LANES OF ONE WARP SHARE ONE RAY.
+//   * A visit's work is spread over the group, so a chain step is short.
+//     Internal row: lane c loads the 7 floats of child c (each load of the
+//     group is one 32-byte sector) and does one slab test.  Leaf row: lane c
+//     tests triangle c and, for c < 4, triangle 8 + c; a three-step butterfly
+//     picks the first minimum.
+//   * A warp holds 4 rays, not 32: it waits for its slowest of 4 and runs at
+//     most 4 different rows a step.  65,536 rays are 524,288 threads, several
+//     waves of the 1,152 that an SM holds at 55 registers.
+//   * The hit children go on the stack far-to-near WITHOUT running the
+//     sorting network: where their keys all differ, a child's slot is the
+//     number of keys above its own, which 7 independent shuffles give.  Only
+//     where two hit children have equal keys does the group run the 19
+//     compare-exchanges of the Batcher network, across lanes in its 6
+//     parallel stages, because then the network's order is the one the plain
+//     version visits in.
+//   * min/max that propagate NaN are one instruction each (min.NaN.f32).
+//   * The stack (64 refs a ray) lives in shared memory, 4 KB a block; every
+//     lane of a group keeps the ray, sp and the running best in registers.
+//   * The loads of a visit depend on nothing but the popped ref: a leaf's
+//     triangles are loaded and tested whatever its count says.
+//   * A ray whose interval is empty (t_max < t_min: the dead lanes of a late
+//     bounce carry t_max = -inf) writes its miss before reading any row.
+// Every shuffle, vote and __syncwarp names the group's own 8 lanes: the four
+// groups of a warp run the loop independently and leave it at different
+// times.  The per-lane arithmetic is the per-ray formulation's, operation
+// for operation, so results are bit-equal to the plain version's.
 //
 // Numerics that pin `idx` to the plain version's (build: -fmad=false, no
 // --use_fast_math, IEEE divide):
 //   * min/max propagate NaN like torch.minimum/maximum (CUDA's fminf/fmaxf
 //     drop it): (lo - ro) * inf is NaN when the origin lies on a box plane
-//     and the direction component is zero, and that child must be culled;
+//     and the direction component is zero, and that child must be culled
+//     (a NaN only ever fails a comparison, it never becomes a key);
 //   * no FMA contraction; operation order of the Shirley test as written in
 //     the plain version; one reciprocal and three multiplies;
-//   * equal-t ties keep the EARLIER hit (strict < against the running
-//     best); children sorted far-to-near by the ray's own unclamped tnear
-//     with the 19-pair Batcher network, so ties visit in the same order.
+//   * within a leaf the FIRST minimum wins (smaller t, at equal t the smaller
+//     slot: what argmin gives); across leaves an equal-t hit found later does
+//     not replace the earlier one (strict <);
+//   * children are pushed far-to-near by the ray's own unclamped tnear;
+//     equal keys go through the network with the swap rule key[a] < key[b]
+//     of the sequential pair list, so they are visited in the same order.
 //
 // Build (done at first use by render/cuda_traverse.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
@@ -52,24 +76,38 @@ namespace {
 
 constexpr int W = 8;             // BVH branching factor (scene/bvh.py WIDTH)
 constexpr int K = 12;            // triangles per leaf (LEAF_SIZE)
-constexpr int ROW_F4 = 32;       // 128 floats per row = 32 float4
+constexpr int ROW = 128;         // floats per record row (RECORD_WIDTH)
 constexpr int STACK = 64;        // per-ray stack capacity (STACK_DEPTH)
+constexpr int G = 8;             // lanes of one warp that share a ray
 constexpr int BLOCK = 128;       // threads per block
+constexpr int MIN_BLOCKS = 8;    // resident blocks per SM the registers must allow
+constexpr int RAYS = BLOCK / G;  // rays per block
+constexpr int TPL = (K + G - 1) / G;   // leaf slots a lane owns: triangle c + G*p
 constexpr float NEG_BIG = -3.0e38f;
 
+static_assert(G == W, "lane c of a group owns child c of an internal row");
+static_assert(BLOCK % 32 == 0 && 32 % G == 0, "groups never straddle a warp");
+
+// The 19 compare-exchanges of batcher_pairs(8), levelled into stages whose
+// pairs touch disjoint elements (render/cuda_traverse.py::sort_stages).
+// Nibble e of a stage's word is the element that element e is compared
+// with, or e itself where it rests.
+constexpr int SORT_STAGES = 6;
+#define SP_SORT_PARTNERS {0x67452301u, 0x54761032u, 0x35607124u, \
+                          0x72143650u, 0x76325410u, 0x75634120u}
+
 __device__ __forceinline__ float pmin(float a, float b) {
-    // NaN-propagating minimum (torch.minimum semantics)
-    float m = fminf(a, b);
-    return (a != a) ? a : ((b != b) ? b : m);
+    // NaN-propagating minimum (torch.minimum semantics) in one instruction;
+    // fminf would return the other operand
+    float m;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
+    return m;
 }
 
 __device__ __forceinline__ float pmax(float a, float b) {
-    float m = fmaxf(a, b);
-    return (a != a) ? a : ((b != b) ? b : m);
-}
-
-__device__ __forceinline__ float f4get(const float4& v, int i) {
-    return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+    float m;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
+    return m;
 }
 
 struct Ray {
@@ -79,60 +117,74 @@ struct Ray {
     float t_min;
 };
 
-// Slab-test the W children of an internal row against the ray, sort the hit
-// children far-to-near by unclamped tnear and push them (nearest on top).
-__device__ __forceinline__ void visit_internal(const float4* __restrict__ row,
+// Sort the W (key, val) elements of a group, one a lane, descending by key;
+// afterwards lane j holds the j-th entry.
+__device__ __forceinline__ void sort_children(float& key, int& val, int c,
+                                              unsigned gmask) {
+    constexpr unsigned partners[SORT_STAGES] = SP_SORT_PARTNERS;
+#pragma unroll
+    for (int s = 0; s < SORT_STAGES; ++s) {
+        const int pe = (partners[s] >> (4 * c)) & 7;
+        const float okey = __shfl_sync(gmask, key, pe, G);
+        const int oval = __shfl_sync(gmask, val, pe, G);
+        // the pair (a, b), a < b, swaps when key[a] < key[b]; both of its
+        // lanes evaluate that one comparison
+        const bool sw = (c < pe) ? (key < okey) : (okey < key);
+        key = sw ? okey : key;
+        val = sw ? oval : val;
+    }
+}
+
+// Slab-test the W children of an internal row against the ray, one child a
+// lane, and push the hit children far-to-near by unclamped tnear (nearest on
+// top).
+__device__ __forceinline__ void visit_internal(const float* __restrict__ row,
                                                const Ray& r, float cur_t_max,
+                                               int c, unsigned gmask,
                                                int* stack, int& sp) {
-    float key[W];
-    int val[W];
+    const float* col = row + c;
+    const float lox = __ldg(col), loy = __ldg(col + W), loz = __ldg(col + 2 * W);
+    const float hix = __ldg(col + 3 * W), hiy = __ldg(col + 4 * W);
+    const float hiz = __ldg(col + 5 * W);
+    const int cref = (int)__ldg(col + 6 * W);
+    const float t0x = (lox - r.ox) * r.ix;
+    const float t0y = (loy - r.oy) * r.iy;
+    const float t0z = (loz - r.oz) * r.iz;
+    const float t1x = (hix - r.ox) * r.ix;
+    const float t1y = (hiy - r.oy) * r.iy;
+    const float t1z = (hiz - r.oz) * r.iz;
+    const float tnear = pmax(pmax(pmin(t0x, t1x), pmin(t0y, t1y)),
+                             pmin(t0z, t1z));
+    const float tfar = pmin(pmin(pmax(t0x, t1x), pmax(t0y, t1y)),
+                            pmax(t0z, t1z));
+    const bool hit = (pmax(tnear, r.t_min) <= pmin(tfar, cur_t_max))
+                     && (tfar >= r.t_min) && (cref != 0);
+    float key = hit ? tnear : -INFINITY;
+    int val = cref;
+    // Where the hit children's keys all differ, descending order is one
+    // order only, and a child's place in it is the number of keys above its
+    // own: G - 1 independent shuffles instead of the network's 6 dependent
+    // stages.  Equal keys of hit children (rare) take the order the network
+    // gives them, so the network runs then.
+    int place = 0;
+    bool eq = false;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const float4 lox = __ldg(row + 0 + h), loy = __ldg(row + 2 + h);
-        const float4 loz = __ldg(row + 4 + h), hix = __ldg(row + 6 + h);
-        const float4 hiy = __ldg(row + 8 + h), hiz = __ldg(row + 10 + h);
-        const float4 ref = __ldg(row + 12 + h);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const float t0x = (f4get(lox, c) - r.ox) * r.ix;
-            const float t0y = (f4get(loy, c) - r.oy) * r.iy;
-            const float t0z = (f4get(loz, c) - r.oz) * r.iz;
-            const float t1x = (f4get(hix, c) - r.ox) * r.ix;
-            const float t1y = (f4get(hiy, c) - r.oy) * r.iy;
-            const float t1z = (f4get(hiz, c) - r.oz) * r.iz;
-            const float tnear = pmax(pmax(pmin(t0x, t1x), pmin(t0y, t1y)),
-                                     pmin(t0z, t1z));
-            const float tfar = pmin(pmin(pmax(t0x, t1x), pmax(t0y, t1y)),
-                                    pmax(t0z, t1z));
-            const int cref = (int)f4get(ref, c);
-            const bool hit = (pmax(tnear, r.t_min) <= pmin(tfar, cur_t_max))
-                             && (tfar >= r.t_min) && (cref != 0);
-            key[4 * h + c] = hit ? tnear : -INFINITY;
-            val[4 * h + c] = cref;
-        }
+    for (int rot = 1; rot < G; ++rot) {
+        const float other = __shfl_sync(gmask, key, (c + rot) % G, G);
+        place += other > key;
+        eq |= other == key;
     }
-    // Batcher odd-even mergesort network for 8 lanes, descending by key
-    // (the pair list of batcher_pairs(8) in render/cuda_traverse.py)
-#define SP_CE(a, b)                                              \
-    {                                                            \
-        const bool sw = key[a] < key[b];                         \
-        const float ka = key[a], kb = key[b];                    \
-        const int va = val[a], vb = val[b];                      \
-        key[a] = sw ? kb : ka; key[b] = sw ? ka : kb;            \
-        val[a] = sw ? vb : va; val[b] = sw ? va : vb;            \
+    const bool tie = eq && (key > NEG_BIG);   // culled children are all -inf
+    if (__any_sync(gmask, tie)) {
+        sort_children(key, val, c, gmask);
+        place = c;
     }
-    SP_CE(0, 1) SP_CE(2, 3) SP_CE(0, 2) SP_CE(1, 3) SP_CE(1, 2)
-    SP_CE(4, 5) SP_CE(6, 7) SP_CE(4, 6) SP_CE(5, 7) SP_CE(5, 6)
-    SP_CE(0, 4) SP_CE(2, 6) SP_CE(2, 4) SP_CE(1, 5) SP_CE(3, 7)
-    SP_CE(3, 5) SP_CE(1, 2) SP_CE(3, 4) SP_CE(5, 6)
-#undef SP_CE
+    const int count = __popc(__ballot_sync(gmask, key > NEG_BIG) & gmask);
     // same overflow guard as the plain version (pack_records asserts that
     // the tree fits, so it never triggers on a packed table)
     if (sp > STACK - W) sp = STACK - W;
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-        if (key[j] > NEG_BIG) stack[sp++] = val[j];
-    }
+    if (key > NEG_BIG) stack[sp + place] = val;
+    sp += count;
 }
 
 // Shirley barycentric test of one leaf triangle (v0, e1 = v0-v1, e2 = v0-v2).
@@ -141,20 +193,20 @@ __device__ __forceinline__ bool tri_test(float v0x, float v0y, float v0z,
                                          float D, float E, float F,
                                          const Ray& r, float cur_t_max,
                                          float& t, float& beta, float& gamma) {
-    const float G = r.dx, H = r.dy, I = r.dz;
+    const float G_ = r.dx, H = r.dy, I = r.dz;
     const float J = v0x - r.ox;
     const float Kk = v0y - r.oy;
     const float L = v0z - r.oz;
     const float EIHF = E * I - H * F;
-    const float GFDI = G * F - D * I;
-    const float DHEG = D * H - E * G;
+    const float GFDI = G_ * F - D * I;
+    const float DHEG = D * H - E * G_;
     const float denom = A * EIHF + B * GFDI + C * DHEG;
     const float inv = 1.0f / (denom == 0.0f ? 1.0f : denom);
     beta = (J * EIHF + Kk * GFDI + L * DHEG) * inv;
     const float AKJB = A * Kk - J * B;
     const float JCAL = J * C - A * L;
     const float BLKC = B * L - Kk * C;
-    gamma = (I * AKJB + H * JCAL + G * BLKC) * inv;
+    gamma = (I * AKJB + H * JCAL + G_ * BLKC) * inv;
     t = -(F * AKJB + E * JCAL + D * BLKC) * inv;
     return (denom != 0.0f) && (beta > 0.0f) && (beta < 1.0f)
            && (gamma > 0.0f) && (beta + gamma < 1.0f)
@@ -173,105 +225,142 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ ro,
 }
 
 template <bool ANY>
-__global__ void __launch_bounds__(BLOCK)
-traverse_kernel(const float4* __restrict__ records,
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
+traverse_kernel(const float* __restrict__ records,
                 const float* __restrict__ ro, const float* __restrict__ rd,
                 const float* __restrict__ t_min, const float* __restrict__ t_max,
                 int n,
                 float* __restrict__ out_t, int* __restrict__ out_idx,
                 float* __restrict__ out_beta, float* __restrict__ out_gamma,
                 unsigned char* __restrict__ out_flag) {
-    const int i = blockIdx.x * BLOCK + threadIdx.x;
-    if (i >= n) return;              // ragged last block
+    __shared__ int stacks[RAYS][STACK];
+
+    const int group = threadIdx.x / G;
+    const int i = blockIdx.x * RAYS + group;
+    if (i >= n) return;              // ragged last block: whole groups leave
+    const int c = threadIdx.x % G;   // this lane's place in its group
+    const unsigned gmask = ((1u << G) - 1u) << ((threadIdx.x % 32) - c);
+    int* stack = stacks[group];
+
     const Ray r = load_ray(ro, rd, t_min, i);
     const float ray_t_max = t_max[i];
-
-    int stack[STACK];
-    int sp = 1;
-    stack[0] = 1;                    // root ref = +1
 
     float best_t = INFINITY, best_beta = 0.0f, best_gamma = 0.0f;
     int best_idx = -1;
     bool found = false;
 
+    // an empty interval fails the root's slab tests: miss, no row is read
+    int sp = (ray_t_max < r.t_min) ? 0 : 1;
+    if (c == 0) stack[0] = 1;        // root ref = +1
+
     while (sp > 0) {
+        __syncwarp(gmask);           // the refs other lanes pushed are visible
         const int ref = stack[--sp];
         const float cur_t_max = ANY ? ray_t_max : fminf(ray_t_max, best_t);
         if (ref > 0) {
-            visit_internal(records + (size_t)(ref - 1) * ROW_F4, r, cur_t_max,
-                           stack, sp);
+            visit_internal(records + (size_t)(ref - 1) * ROW, r, cur_t_max,
+                           c, gmask, stack, sp);
             continue;
         }
-        const float4* row = records + (size_t)(-ref - 1) * ROW_F4;
-        const float4 meta = __ldg(row + 27);   // floats 108..111
+        const float* row = records + (size_t)(-ref - 1) * ROW;
+        const float4 meta = __ldg((const float4*)(row + 9 * K));   // floats 108..111
         const int base = ((int)meta.y << 12) + (int)meta.x;
         const int count = (int)meta.z;
+
+        // This lane's first minimum over its own slots (ascending slot
+        // order).  Every slot of the row is loaded and tested, whatever the
+        // leaf's count (leaves are packed full): the triangle loads then do
+        // not wait for the meta load, and `k < count` masks the rest.
+        float my_t = INFINITY, my_beta = 0.0f, my_gamma = 0.0f;
+        int my_k = c;
+        bool any_ok = false;
 #pragma unroll
-        for (int g = 0; g < K / 4; ++g) {
-            if (4 * g >= count) break;
-            const float4 v0x = __ldg(row + 0 + g), v0y = __ldg(row + 3 + g);
-            const float4 v0z = __ldg(row + 6 + g);
-            const float4 a4 = __ldg(row + 9 + g), b4 = __ldg(row + 12 + g);
-            const float4 c4 = __ldg(row + 15 + g);
-            const float4 d4 = __ldg(row + 18 + g), e4 = __ldg(row + 21 + g);
-            const float4 f4 = __ldg(row + 24 + g);
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
+        for (int p = 0; p < TPL; ++p) {
+            const int k = c + G * p;
+            if (k < K) {
+                const float* col = row + k;
                 float t, beta, gamma;
-                const bool ok = tri_test(f4get(v0x, c), f4get(v0y, c), f4get(v0z, c),
-                                         f4get(a4, c), f4get(b4, c), f4get(c4, c),
-                                         f4get(d4, c), f4get(e4, c), f4get(f4, c),
+                const bool ok = tri_test(__ldg(col), __ldg(col + K), __ldg(col + 2 * K),
+                                         __ldg(col + 3 * K), __ldg(col + 4 * K),
+                                         __ldg(col + 5 * K), __ldg(col + 6 * K),
+                                         __ldg(col + 7 * K), __ldg(col + 8 * K),
                                          r, cur_t_max, t, beta, gamma)
-                                && (4 * g + c < count);
+                                && (k < count);
                 if (ANY) {
-                    found = found || ok;
-                } else if (ok && t < best_t) {
-                    // strict <: the earlier of two equal-t hits is kept
-                    best_t = t; best_beta = beta; best_gamma = gamma;
-                    best_idx = base + 4 * g + c;
-                    found = true;
+                    any_ok = any_ok || ok;
+                } else if (ok && t < my_t) {
+                    my_t = t; my_beta = beta; my_gamma = gamma; my_k = k;
                 }
             }
         }
-        if (ANY && found) break;
+        if (ANY) {
+            if (__any_sync(gmask, any_ok)) { found = true; break; }
+            continue;
+        }
+        // first minimum of the leaf: smaller t, at equal t the smaller slot
+        float win_t = my_t;
+        int win_k = my_k;
+#pragma unroll
+        for (int m = G / 2; m > 0; m >>= 1) {
+            const float other_t = __shfl_xor_sync(gmask, win_t, m, G);
+            const int other_k = __shfl_xor_sync(gmask, win_k, m, G);
+            if (other_t < win_t || (other_t == win_t && other_k < win_k)) {
+                win_t = other_t; win_k = other_k;
+            }
+        }
+        // strict <: the earlier of two equal-t hits of different leaves is
+        // kept (every lane of the group holds the same win_t and best_t)
+        if (win_t < best_t) {
+            best_t = win_t;
+            best_idx = base + win_k;
+            best_beta = __shfl_sync(gmask, my_beta, win_k % G, G);
+            best_gamma = __shfl_sync(gmask, my_gamma, win_k % G, G);
+            found = true;
+        }
     }
 
-    out_flag[i] = found ? 1 : 0;
-    if (!ANY) {
-        out_t[i] = best_t;
-        out_idx[i] = best_idx;
-        out_beta[i] = best_beta;
-        out_gamma[i] = best_gamma;
+    if (c == 0) {
+        out_flag[i] = found ? 1 : 0;
+        if (!ANY) {
+            out_t[i] = best_t;
+            out_idx[i] = best_idx;
+            out_beta[i] = best_beta;
+            out_gamma[i] = best_gamma;
+        }
     }
 }
 
+template <bool ANY>
+int launch(const void* records, const void* ro, const void* rd,
+           const void* t_min, const void* t_max, int n,
+           void* out_t, void* out_idx, void* out_beta, void* out_gamma,
+           void* out_flag, void* stream) {
+    if (n > 0) {
+        const int grid = (n + RAYS - 1) / RAYS;
+        traverse_kernel<ANY><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+            (const float*)records, (const float*)ro, (const float*)rd,
+            (const float*)t_min, (const float*)t_max, n,
+            (float*)out_t, (int*)out_idx, (float*)out_beta, (float*)out_gamma,
+            (unsigned char*)out_flag);
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// out_valid / out_occluded: one byte a ray, 0 or 1 (a torch.bool tensor)
 
 extern "C" int sp_closest(const void* records, const void* ro, const void* rd,
                           const void* t_min, const void* t_max, int n,
                           void* out_t, void* out_idx, void* out_beta,
                           void* out_gamma, void* out_valid, void* stream) {
-    if (n > 0) {
-        const int grid = (n + BLOCK - 1) / BLOCK;
-        traverse_kernel<false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-            (const float4*)records, (const float*)ro, (const float*)rd,
-            (const float*)t_min, (const float*)t_max, n,
-            (float*)out_t, (int*)out_idx, (float*)out_beta, (float*)out_gamma,
-            (unsigned char*)out_valid);
-    }
-    return (int)cudaGetLastError();
+    return launch<false>(records, ro, rd, t_min, t_max, n, out_t, out_idx,
+                         out_beta, out_gamma, out_valid, stream);
 }
 
 extern "C" int sp_anyhit(const void* records, const void* ro, const void* rd,
                          const void* t_min, const void* t_max, int n,
                          void* out_occluded, void* stream) {
-    if (n > 0) {
-        const int grid = (n + BLOCK - 1) / BLOCK;
-        traverse_kernel<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-            (const float4*)records, (const float*)ro, (const float*)rd,
-            (const float*)t_min, (const float*)t_max, n,
-            nullptr, nullptr, nullptr, nullptr,
-            (unsigned char*)out_occluded);
-    }
-    return (int)cudaGetLastError();
+    return launch<true>(records, ro, rd, t_min, t_max, n, nullptr, nullptr,
+                        nullptr, nullptr, out_occluded, stream);
 }

@@ -8,14 +8,16 @@ Counterpart of ``simplepath_tpu/render/pallas_traverse.py``:
   ``t=+inf, idx=-1``;
 * :func:`anyhit`   ← ``packet_anyhit``: occlusion per ray, ``bool[N]``.
 
-The kernels are hand-written CUDA C++ (``csrc/traverse.cu``): one thread per
-ray with its own stack — the per-ray semantics of the JAX package's
-``_bvh_closest`` / ``_bvh_any``, including their tie rules (an equal-t hit
-found later does NOT replace the earlier one; children are ordered
-far-to-near by the ray's own unclamped ``tnear`` through the 19-pair Batcher
-network).  They are built with ``nvcc`` at first use into the package's
-ignored ``build/`` directory and loaded with ctypes; nothing is built or
-imported from CUDA when this module is imported.
+The kernels are hand-written CUDA C++ (``csrc/traverse.cu``): a group of
+:data:`LANES_PER_RAY` lanes of one warp walks one ray with the ray's own
+stack — the per-ray semantics of the JAX package's ``_bvh_closest`` /
+``_bvh_any``, including their tie rules (an equal-t hit found later does NOT
+replace the earlier one; children are ordered far-to-near by the ray's own
+unclamped ``tnear``, equal keys in the order the 19-pair Batcher network
+leaves them in, which the group then runs across its lanes in the stages of
+:func:`sort_stages`).  They are built with ``nvcc`` at first use into the
+package's ignored ``build/`` directory and loaded with ctypes; nothing is
+built or imported from CUDA when this module is imported.
 
 Dispatch rule: a CUDA tensor goes to the kernel, or the call raises — there
 is no fallback from kernel to plain version.  A CPU tensor goes to the plain
@@ -39,12 +41,16 @@ from ..scene.bvh import LEAF_ROWS, LEAF_SIZE, RECORD_WIDTH, WIDTH
 
 __all__ = ["closest", "anyhit", "closest_plain", "anyhit_plain",
            "launch_counts", "reset_launch_counts", "plain_versions",
-           "build_library", "batcher_pairs", "STACK_DEPTH"]
+           "build_library", "batcher_pairs", "sort_stages",
+           "sort_stage_partners", "STACK_DEPTH", "LANES_PER_RAY"]
 
 # Per-ray stack capacity of the kernels and the plain versions; worst case
 # is depth*(W-1)+1 entries, and scene/bvh.py::pack_records asserts that a
 # table fits before it is ever traversed.
 STACK_DEPTH = 64
+# Lanes of one warp that share a ray in the kernels: one lane per child of an
+# internal row (a compile-time constant of csrc/traverse.cu).
+LANES_PER_RAY = 8
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
@@ -88,36 +94,50 @@ def _nvcc() -> str:
     return "nvcc"  # on PATH, or the build raises
 
 
+def _compile_source(source: str, out: str, flags: tuple[str, ...] = (),
+                   verbose: bool = False) -> str:
+    """``nvcc`` one traversal source for sm_90a into the shared library
+    ``out``; returns what ptxas said (with ``verbose``: registers, shared
+    memory and spills per kernel).  Raises if nvcc fails."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags] + (["-Xptxas", "-v"] if verbose else []) \
+        + ["-o", tmp, source]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)
+    return proc.stderr.strip()
+
+
 def build_library(verbose: bool = False) -> str:
     """Compile ``csrc/traverse.cu`` for sm_90a into ``build/`` unless an
     up-to-date library is there; returns its path.  Raises if nvcc fails."""
     if (os.path.exists(_LIB_PATH)
             and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(KERNEL_SOURCE)):
         return _LIB_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp, KERNEL_SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, _LIB_PATH)
+    log = _compile_source(KERNEL_SOURCE, _LIB_PATH, verbose=verbose)
     if verbose:
-        print(proc.stderr.strip())
+        print(log)
     return _LIB_PATH
+
+
+def _bind_library(path: str):
+    """Load a built traversal library and declare its C entry points."""
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sp_closest.restype = i
+    lib.sp_closest.argtypes = [p, p, p, p, p, i, p, p, p, p, p, p]
+    lib.sp_anyhit.restype = i
+    lib.sp_anyhit.argtypes = [p, p, p, p, p, i, p, p]
+    return lib
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build_library())
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sp_closest.restype = i
-        lib.sp_closest.argtypes = [p, p, p, p, p, i, p, p, p, p, p, p]
-        lib.sp_anyhit.restype = i
-        lib.sp_anyhit.argtypes = [p, p, p, p, p, i, p, p]
-        _lib = lib
+        _lib = _bind_library(build_library())
     return _lib
 
 
@@ -170,7 +190,8 @@ def closest(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
     records: f32[M,128] unified BVH table; ro/rd: f32[N,3]; t_min/t_max:
     f32[N], any N ≥ 0.  Returns (t, tri_idx i32, beta, gamma, valid bool),
     each [N]; misses carry t=+inf, tri_idx=-1.  Lanes with a collapsed
-    interval (t_max=-inf) miss after one row visit.
+    interval (t_max=-inf) miss: the plain version after one row visit, the
+    kernel before it reads a row.
     """
     n = _check_inputs(records, ro, rd, t_min, t_max)
     records, ro, rd = records.detach(), ro.detach(), rd.detach()
@@ -183,9 +204,9 @@ def closest(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     beta = torch.empty(n, dtype=torch.float32, device=dev)
     gamma = torch.empty(n, dtype=torch.float32, device=dev)
-    valid = torch.empty(n, dtype=torch.uint8, device=dev)
+    valid = torch.empty(n, dtype=torch.bool, device=dev)   # kernel writes 0/1
     if n == 0:
-        return t, idx, beta, gamma, valid.bool()
+        return t, idx, beta, gamma, valid
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.sp_closest(records.data_ptr(), ro.data_ptr(), rd.data_ptr(),
@@ -195,7 +216,7 @@ def closest(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
                              torch.cuda.current_stream(dev).cuda_stream)
     launch_counts["closest"] += 1
     _raise_on(err, "sp_closest")
-    return t, idx, beta, gamma, valid.bool()
+    return t, idx, beta, gamma, valid
 
 
 def anyhit(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
@@ -209,9 +230,9 @@ def anyhit(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
         return anyhit_plain(records, ro, rd, t_min, t_max)
     _check_kernel_layout(records=records, ro=ro, rd=rd, t_min=t_min, t_max=t_max)
     dev = records.device
-    occ = torch.empty(n, dtype=torch.uint8, device=dev)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)     # kernel writes 0/1
     if n == 0:
-        return occ.bool()
+        return occ
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.sp_anyhit(records.data_ptr(), ro.data_ptr(), rd.data_ptr(),
@@ -220,7 +241,7 @@ def anyhit(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
                             torch.cuda.current_stream(dev).cuda_stream)
     launch_counts["anyhit"] += 1
     _raise_on(err, "sp_anyhit")
-    return occ.bool()
+    return occ
 
 
 # ------------------------------------------------------- plain versions
@@ -251,6 +272,37 @@ def batcher_pairs(n: int) -> tuple[tuple[int, int], ...]:
             yield from merge(lo, hi, 1)
 
     return tuple(sort(0, n - 1))
+
+
+def sort_stages(n: int) -> tuple[tuple[tuple[int, int], ...], ...]:
+    """The compare-exchanges of :func:`batcher_pairs`, each as early as the
+    pairs before it on its two elements allow: stages whose pairs touch
+    disjoint elements, so that a stage's pairs can run at once (the kernel
+    runs a stage across the lanes of a group with shuffles).  Applying the
+    stages in order gives the result of the sequential list, ties included.
+    6 stages at n=8."""
+    level = [0] * n
+    stages: list[list[tuple[int, int]]] = []
+    for a, b in batcher_pairs(n):
+        at = max(level[a], level[b])
+        if at == len(stages):
+            stages.append([])
+        stages[at].append((a, b))
+        level[a] = level[b] = at + 1
+    return tuple(tuple(s) for s in stages)
+
+
+def sort_stage_partners(n: int = WIDTH) -> tuple[int, ...]:
+    """:func:`sort_stages` as the kernel holds it: one word a stage, nibble e
+    = the element that element e is compared with (e itself where it
+    rests)."""
+    words = []
+    for stage in sort_stages(n):
+        partner = list(range(n))
+        for a, b in stage:
+            partner[a], partner[b] = b, a
+        words.append(sum(p << (4 * e) for e, p in enumerate(partner)))
+    return tuple(words)
 
 
 _SORTW_PAIRS = batcher_pairs(WIDTH)
@@ -358,10 +410,44 @@ def _init_stack(n: int, device):
     return stack, torch.ones(n, dtype=torch.int64, device=device)
 
 
-def _add_stats(stats: dict, n_internal: int, n_leaf: int, n_tris: int) -> None:
-    for name, v in (("internal_visits", n_internal), ("leaf_visits", n_leaf),
-                    ("triangle_tests", n_tris)):
-        stats[name] = stats.get(name, 0) + v
+class _VisitCounter:
+    """Per-ray visit counts of one plain traversal and the table rows it
+    touched, for its ``stats``."""
+
+    def __init__(self, n_rows: int, live: Tensor):
+        n, device = live.shape[0], live.device
+        self.live = live
+        self.internal = torch.zeros(n, dtype=torch.int64, device=device)
+        self.leaf = torch.zeros(n, dtype=torch.int64, device=device)
+        self.by_count = torch.zeros(LEAF_SIZE + 1, dtype=torch.int64, device=device)
+        self.internal_rows = torch.zeros(n_rows, dtype=torch.bool, device=device)
+        self.leaf_rows = torch.zeros(n_rows, dtype=torch.bool, device=device)
+
+    def visit(self, ref: Tensor, rec: Tensor, is_leaf: Tensor,
+              active: Tensor) -> None:
+        at_leaf = is_leaf & active
+        self.leaf += at_leaf
+        self.internal += ~is_leaf & active
+        row = torch.abs(ref) - 1
+        self.internal_rows[row[~is_leaf & active & self.live]] = True
+        self.leaf_rows[row[at_leaf & self.live]] = True
+        counts = rec[at_leaf, 9 * LEAF_SIZE + 2].to(torch.int64)
+        self.by_count += torch.bincount(counts, minlength=LEAF_SIZE + 1)
+
+    def add_to(self, stats: dict) -> None:
+        """Totals add up over calls; the per-ray counts are this call's."""
+        by_count = self.by_count.tolist()
+        n_tris = sum(k * v for k, v in enumerate(by_count))
+        for name, v in (("internal_visits", int(self.internal.sum())),
+                        ("leaf_visits", int(self.leaf.sum())),
+                        ("triangle_tests", n_tris)):
+            stats[name] = stats.get(name, 0) + v
+        prev = stats.get("leaf_visits_by_count", [0] * (LEAF_SIZE + 1))
+        stats["leaf_visits_by_count"] = [a + b for a, b in zip(prev, by_count)]
+        stats["ray_internal_visits"] = self.internal
+        stats["ray_leaf_visits"] = self.leaf
+        stats["internal_rows_visited"] = self.internal_rows
+        stats["leaf_rows_visited"] = self.leaf_rows
 
 
 def closest_plain(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
@@ -369,7 +455,13 @@ def closest_plain(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
     """Plain PyTorch version of :func:`closest` (same outputs).  With a
     ``stats`` dict, adds the number of internal rows, leaf rows and leaf
     triangles visited, summed over rays — the kernel visits the same rows in
-    the same order."""
+    the same order — and, per call, ``leaf_visits_by_count`` (leaf visits by
+    the leaf's triangle count, 0..K), the int64[N] per-ray counts
+    ``ray_internal_visits`` / ``ray_leaf_visits``, and the bool[M] masks
+    ``internal_rows_visited`` / ``leaf_rows_visited`` of the table rows that
+    rays with a non-empty interval (t_max >= t_min) visited: the distinct
+    rows a traversal of these rays has to read.  A ray with an empty interval
+    pops the root here and reads nothing in the kernel."""
     n = _check_inputs(records, ro, rd, t_min, t_max)
     dev = records.device
     inv_d = 1.0 / rd   # IEEE inf for zero components is fine for slabs
@@ -379,7 +471,8 @@ def closest_plain(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
     best_idx = torch.full((n,), -1, dtype=torch.int64, device=dev)
     best_beta = torch.zeros(n, dtype=torch.float32, device=dev)
     best_gamma = torch.zeros(n, dtype=torch.float32, device=dev)
-    n_internal = n_leaf = n_tris = 0
+    counter = (_VisitCounter(records.shape[0], ~(t_max < t_min))
+               if stats is not None else None)
 
     while True:
         active = sp > 0
@@ -405,14 +498,11 @@ def closest_plain(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
         best_valid = best_valid | c_valid
 
         sp = _push(stack, sp, packed, torch.where(active, n_push, 0))
-        if stats is not None:
-            at_leaf = is_leaf & active
-            n_leaf += int(at_leaf.sum())
-            n_internal += int((~is_leaf & active).sum())
-            n_tris += int(rec[at_leaf, 9 * LEAF_SIZE + 2].sum())
+        if counter is not None:
+            counter.visit(ref, rec, is_leaf, active)
 
-    if stats is not None:
-        _add_stats(stats, n_internal, n_leaf, n_tris)
+    if counter is not None:
+        counter.add_to(stats)
     return best_t, best_idx.to(torch.int32), best_beta, best_gamma, best_valid
 
 
@@ -425,7 +515,8 @@ def anyhit_plain(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
     inv_d = 1.0 / rd
     stack, sp = _init_stack(n, dev)
     found = torch.zeros(n, dtype=torch.bool, device=dev)
-    n_internal = n_leaf = n_tris = 0
+    counter = (_VisitCounter(records.shape[0], ~(t_max < t_min))
+               if stats is not None else None)
 
     while True:
         active = (sp > 0) & ~found
@@ -437,12 +528,9 @@ def anyhit_plain(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
         valid = _visit_leaf(rec, ro, rd, t_min, t_max)[3]
         found = found | (valid.any(dim=1) & is_leaf & active)
         sp = _push(stack, sp, packed, torch.where(active, n_push, 0))
-        if stats is not None:
-            at_leaf = is_leaf & active
-            n_leaf += int(at_leaf.sum())
-            n_internal += int((~is_leaf & active).sum())
-            n_tris += int(rec[at_leaf, 9 * LEAF_SIZE + 2].sum())
+        if counter is not None:
+            counter.visit(ref, rec, is_leaf, active)
 
-    if stats is not None:
-        _add_stats(stats, n_internal, n_leaf, n_tris)
+    if counter is not None:
+        counter.add_to(stats)
     return found
