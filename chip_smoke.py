@@ -4,11 +4,11 @@
     python3 chip_smoke.py            # every phase, needs one CUDA device
     python3 chip_smoke.py --spp 2 --phases kernels,parity
 
-Drives the port's main path — load_scene → render_image_sharded →
-render_rays → integrate_rrnee → PFM — on the bench scene
+Drives the port's render paths — load_scene → render_image_sharded →
+render_rays → each integrator → PFM — on the bench scene
 (scenes/bunny_bench.sp: 327,680 triangles, 1024x1024, depth 10), through
 the two hand-written CUDA traversal kernels, and holds each kernel against
-its plain PyTorch version on the card.  Phases, one JSON line each:
+its plain PyTorch version on the card.  Phases, JSON lines:
 
   device   card name and power limit (nvidia-smi), torch and CUDA versions
   build    nvcc build of csrc/traverse.cu and g++ build of the BVH builder
@@ -17,11 +17,23 @@ its plain PyTorch version on the card.  Phases, one JSON line each:
            wavefronts of bounces 0, 2 and 5 of one rendered 65,536-ray chunk:
            exact valid/idx/occluded, t rtol 1e-5, beta/gamma rtol 1e-4;
            times, visits a ray, lane-step shares, bytes the visits read
-  render   the full frame at --spp samples; launch counts per kernel
-  parity   128x128, 1 spp: kernels vs plain versions forced, on the card
+  render   the flagship (iterative_rrnee) full frame at --spp samples;
+           launch counts per kernel
+  paths    the full frame at 1 spp with each other traced integrator, and
+           with an image-based environment light (a 1024x2048 PFM written
+           from a seed) under iterative_rrnee and direct_lighting; launch
+           counts per kernel and path (sp_anyhit exactly where there is NEE)
+  parity   128x128, 1 spp: kernels vs plain versions forced, on the card,
+           for the flagship and every path above; adaptive RR at 64x64,
+           20 spp; Mandelbrot at 256x256 with no kernel launch
+  cli      simplepath_tpu_torch.cli on tests/scenes/g_ibl_rrnee.sp, 8 spp
+           in passes of 4 with a checkpoint; a render cut after its first
+           pass and resumed by the CLI equals the uninterrupted one bit for
+           bit
 
-Any failed phase raises (non-zero exit).  Without a CUDA device the script
-exits non-zero before printing any result.  The last line of the output is
+Each phase's seconds follow it on a line of their own.  Any failed phase
+raises (non-zero exit).  Without a CUDA device the script exits non-zero
+before printing any result.  The last line of the output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -43,7 +55,15 @@ sys.path.insert(0, HERE)
 
 SCENE = os.path.join(HERE, "scenes", "bunny_bench.sp")
 OUT_DIR = os.path.join(HERE, "chip_smoke_out")
-PHASES = ("device", "build", "kernels", "render", "parity")
+IBL_TEST_SCENE = os.path.join(HERE, "tests", "scenes", "g_ibl_rrnee.sp")
+PHASES = ("device", "build", "kernels", "render", "paths", "parity", "cli")
+# the traced integrators besides the flagship, and whether each has NEE
+# (next-event estimation: shadow rays through sp_anyhit)
+PATHS = {"direct_lighting": True, "brute_force": False,
+         "brute_force_iterative": False, "brute_force_iterative_rr": False,
+         "brute_force_iterative_dynamic_rr": False, "whitted": True}
+IBL_PATHS = {"iterative_rrnee": True, "direct_lighting": True}
+IBL_SHAPE = (1024, 2048)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
 # float32 rate outside the tensor cores.
@@ -385,41 +405,305 @@ def phase_render(scene, spp: int, load_s: float, builder: str) -> tuple:
     return launches
 
 
-def phase_parity(scene) -> None:
-    """128x128, 1 spp, same key: once through the kernels, once with the
-    plain versions forced, both on the card."""
+def write_ibl_map(path: str, seed: int = 0) -> None:
+    """A 1024x2048 lat-long environment map from a seed: a sky gradient
+    (bright toward the zenith, dark below the horizon), a small hot sun and
+    seeded noise."""
+    from simplepath_tpu_torch.io.pfm import write_pfm
+    h, w = IBL_SHAPE
+    rs = np.random.RandomState(seed)
+    v = (np.arange(h, dtype=np.float32) + 0.5) / h          # 0 = zenith
+    sky = np.stack([0.3 + 0.5 * (1 - v), 0.4 + 0.5 * (1 - v),
+                    0.6 + 0.6 * (1 - v)], -1)
+    sky[v > 0.5] *= 0.1                                      # the ground
+    img = np.broadcast_to(sky[:, None, :], (h, w, 3)).copy()
+    img *= 1.0 + 0.2 * rs.rand(h, w, 1)
+    img[200:206, 700:709] = (800.0, 700.0, 500.0)            # the sun
+    write_pfm(path, img.astype(np.float32))
+
+
+def ibl_bench_scene():
+    """The bench scene's text with an image-based environment light added;
+    the map is written into OUT_DIR.  No file under scenes/ is touched."""
+    import simplepath_tpu_torch as sp
+    from simplepath_tpu_torch.scene.parser import parse_sp
+    os.makedirs(OUT_DIR, exist_ok=True)
+    env_path = os.path.join(OUT_DIR, "bench_env.pfm")
+    write_ibl_map(env_path)
+    with open(SCENE) as f:
+        text = f.read()
+    text += ("\nenvironment_light {\n    rotate: 0.0 1.0 0.0 30.0\n"
+             "    radiance: 1.0 1.0 1.0\n    max_radiance: 100\n"
+             f"    image: \"{env_path}\"\n}}\n")
+    t0 = time.time()
+    scene = sp.build_scene(parse_sp(text, base_dir=os.path.dirname(SCENE)))
+    torch.cuda.synchronize()
+    h, w = IBL_SHAPE
+    env = scene.env
+    shapes = {"image": (h, w, 3), "cdf_cond_f": (2 * h, 2 * w),
+              "cdf_cond": (2 * h, 2 * w + 1), "cdf_cond_int": (2 * h,),
+              "cdf_marg_f": (2 * h,), "cdf_marg": (2 * h + 1,),
+              "cdf_marg_int": ()}
+    for field, shape in shapes.items():
+        if tuple(getattr(env, field).shape) != shape:
+            raise AssertionError(f"IBL table {field} has shape "
+                                 f"{tuple(getattr(env, field).shape)}, not {shape}")
+    return scene, time.time() - t0, shapes
+
+
+def with_integrator(scene, name: str):
+    return dataclasses.replace(
+        scene, static=dataclasses.replace(scene.static, integrator=name))
+
+
+def check_launches(path: str, launches: dict, nee: bool) -> None:
+    """sp_closest on every traced path; sp_anyhit exactly where there is
+    NEE."""
+    if launches["closest"] <= 0:
+        raise AssertionError(f"{path}: sp_closest was never launched")
+    if nee and launches["anyhit"] <= 0:
+        raise AssertionError(f"{path}: sp_anyhit was never launched")
+    if not nee and launches["anyhit"] != 0:
+        raise AssertionError(f"{path}: sp_anyhit launched "
+                             f"{launches['anyhit']} times without NEE")
+
+
+def render_path(path: str, scene, spp: int = 1) -> dict:
+    """One full frame through render_image_sharded, the launch counts set
+    to 0 just before it and read just after."""
     from simplepath_tpu_torch.core.rng import prng_key
     from simplepath_tpu_torch.parallel.mesh import render_image_sharded
     from simplepath_tpu_torch.render import cuda_traverse as ct
 
-    side = 128
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ct.reset_launch_counts()
+    t0 = time.time()
+    img = render_image_sharded(scene, spp, prng_key(0))
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    launches = dict(ct.launch_counts)
+    st = scene.static
+    if tuple(img.shape) != (st.height, st.width, 3):
+        raise AssertionError(f"{path}: image shape {tuple(img.shape)}")
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{path}: non-finite pixels")
+    mean = float(img.mean())
+    if not mean > 0:
+        raise AssertionError(f"{path}: image mean {mean} is not positive")
+    return dict(path=path, integrator=st.integrator, width=st.width,
+                height=st.height, max_depth=st.max_depth, spp=spp,
+                render_s=render_s,
+                camera_paths_per_s=st.width * st.height * spp / render_s,
+                launches=launches, image_mean=mean,
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def ibl_light_sample_launches(scene) -> int:
+    """CUDA launches of one batched IBL light sample (the two dependent
+    binary searches), counted with the profiler on one 65,536-lane call."""
+    from simplepath_tpu_torch.render.lights import env_light_sample
+    u = torch.rand((65536, 2), device=scene.device)
+    env_light_sample(scene.env, scene.static.env_kind, u)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        env_light_sample(scene.env, scene.static.env_kind, u)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_paths(scene, ibl) -> dict:
+    """Every traced integrator besides the flagship on the bench frame, then
+    the bench with an image-based light under rrnee and direct lighting."""
+    by_path = {}
+    for name, nee in PATHS.items():
+        res = render_path(name, with_integrator(scene, name))
+        check_launches(name, res["launches"], nee)
+        emit("paths", **res)
+        by_path[name] = res["launches"]
+    ibl_scene, build_s, shapes = ibl
+    per_sample = ibl_light_sample_launches(ibl_scene)
+    for name, nee in IBL_PATHS.items():
+        path = f"ibl_{name}"
+        res = render_path(path, with_integrator(ibl_scene, name))
+        check_launches(path, res["launches"], nee)
+        emit("paths", **res, ibl_map=list(IBL_SHAPE), ibl_build_s=build_s,
+             ibl_tables=shapes, ibl_launches_per_light_sample=per_sample)
+        by_path[path] = res["launches"]
+    return by_path
+
+
+def shrink(scene, side: int):
+    """The scene at side x side pixels (same camera, same geometry)."""
     wh = torch.tensor([side, side], dtype=torch.float32, device=scene.device)
-    small = dataclasses.replace(
-        scene,
-        static=dataclasses.replace(scene.static, width=side, height=side),
+    return dataclasses.replace(
+        scene, static=dataclasses.replace(scene.static, width=side, height=side),
         camera=dataclasses.replace(scene.camera, wh=wh))
+
+
+def parity_case(path: str, scene, side: int = 128, spp: int = 1) -> None:
+    """One render through the kernels and one with the plain versions
+    forced, both on the card, same key: allclose at rtol 1e-4, atol 1e-5."""
+    from simplepath_tpu_torch.core.rng import prng_key
+    from simplepath_tpu_torch.parallel.mesh import render_image_sharded
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+
+    small = shrink(scene, side)
     key = prng_key(3)
     ct.reset_launch_counts()
-    a = render_image_sharded(small, 1, key)
+    a = render_image_sharded(small, spp, key)
     torch.cuda.synchronize()
     launches = dict(ct.launch_counts)
     t0 = time.time()
     with ct.plain_versions():
-        b = render_image_sharded(small, 1, key)
+        b = render_image_sharded(small, spp, key)
     torch.cuda.synchronize()
     plain_s = time.time() - t0
     if dict(ct.launch_counts) != launches:
-        raise AssertionError("the plain-version render launched a kernel")
+        raise AssertionError(f"{path}: the plain-version render launched a kernel")
     close = torch.isclose(a, b, rtol=1e-4, atol=1e-5)
-    emit("parity", side=side, spp=1, kernel_launches=launches,
-         plain_render_s=plain_s, mismatched_values=int((~close).sum()),
+    emit("parity", path=path, integrator=small.static.integrator, side=side,
+         spp=spp, kernel_launches=launches, plain_render_s=plain_s,
+         mismatched_values=int((~close).sum()),
          max_abs_diff=float((a - b).abs().max()), mean_kernels=float(a.mean()),
          mean_plain=float(b.mean()))
     if not bool(close.all()) or not float(a.mean()) > 0:
-        raise AssertionError("kernel render and plain-version render differ")
+        raise AssertionError(f"{path}: kernel render and plain-version "
+                             "render differ")
+    if launches["closest"] <= 0:
+        raise AssertionError(f"{path}: the kernel render launched no sp_closest")
 
 
-def kernels_line(results: dict, launches: dict) -> dict:
+def dynamic_rr_buckets_filled(scene, side: int = 64, spp: int = 20) -> dict:
+    """Adaptive RR at side x side, spp samples: the integrator is wrapped
+    here to keep its statistics; how many (pixel, depth) buckets reached
+    RR_MIN_SAMPLES observations, i.e. where RR could fire."""
+    from simplepath_tpu_torch.core.rng import prng_key
+    from simplepath_tpu_torch.parallel.mesh import render_image_sharded
+    from simplepath_tpu_torch.render import integrators as ti
+
+    name = "brute_force_iterative_dynamic_rr"
+    real = ti.INTEGRATOR_FNS[name]
+    kept = {}
+
+    def keeping(*args, **kw):
+        L, kept["stats"] = real(*args, **kw)
+        return L, kept["stats"]
+
+    ti.INTEGRATOR_FNS[name] = keeping
+    try:
+        render_image_sharded(shrink(with_integrator(scene, name), side), spp,
+                             prng_key(3))
+    finally:
+        ti.INTEGRATOR_FNS[name] = real
+    count = kept["stats"][1]
+    return {"buckets": int(count.numel()),
+            "buckets_at_rr_min_samples": int((count >= ti.RR_MIN_SAMPLES).sum()),
+            "max_count": int(count.max())}
+
+
+def phase_parity(scene, ibl) -> None:
+    """The flagship and every path of the paths phase at 128x128, 1 spp;
+    adaptive RR at 64x64, 20 spp; Mandelbrot at 256x256, no launches."""
+    from simplepath_tpu_torch.core.rng import prng_key
+    from simplepath_tpu_torch.parallel.mesh import render_image_sharded
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+
+    parity_case("iterative_rrnee", scene)
+    for name in PATHS:
+        parity_case(name, with_integrator(scene, name))
+    for name in IBL_PATHS:
+        parity_case(f"ibl_{name}", with_integrator(ibl[0], name))
+
+    # Russian roulette from depth 0, so that every pixel on geometry fills
+    # its first bucket on every sample and RR acts from sample 17 on
+    dyn = with_integrator(scene, "brute_force_iterative_dynamic_rr")
+    dyn = dataclasses.replace(dyn, static=dataclasses.replace(
+        dyn.static, russian_roulette_depth=0))
+    parity_case("brute_force_iterative_dynamic_rr_20spp", dyn, side=64, spp=20)
+    emit("parity", path="brute_force_iterative_dynamic_rr_20spp",
+         side=64, spp=20, **dynamic_rr_buckets_filled(dyn))
+
+    mandel = shrink(with_integrator(scene, "mandelbrot"), 256)
+    ct.reset_launch_counts()
+    t0 = time.time()
+    img = render_image_sharded(mandel, 1, prng_key(3))
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    launches = dict(ct.launch_counts)
+    emit("parity", path="mandelbrot", side=256, spp=1, render_s=render_s,
+         kernel_launches=launches, image_mean=float(img.mean()))
+    if any(launches.values()):
+        raise AssertionError(f"mandelbrot launched traversal kernels: {launches}")
+    if not bool(torch.isfinite(img).all()) or not float(img.mean()) > 0:
+        raise AssertionError("mandelbrot image is not finite and positive")
+
+
+def phase_cli() -> None:
+    """The CLI end to end, in this process, on the card: an uninterrupted
+    progressive render with a checkpoint, then a render cut after its first
+    4-spp pass (its checkpoint holds 4 of 8 samples) that the CLI resumes.
+    The two PFMs must be equal byte for byte."""
+    import simplepath_tpu_torch as sp
+    from simplepath_tpu_torch import cli
+    from simplepath_tpu_torch.core.rng import prng_key
+    from simplepath_tpu_torch.parallel import mesh
+    from simplepath_tpu_torch.render.film import render_image_progressive
+    from simplepath_tpu_torch.utils import load_checkpoint
+
+    out = os.path.join(OUT_DIR, "cli")
+    os.makedirs(out, exist_ok=True)
+    whole, cut = os.path.join(out, "whole.pfm"), os.path.join(out, "resumed.pfm")
+    ck_whole, ck_cut = os.path.join(out, "ck.npz"), os.path.join(out, "ck_cut.npz")
+    for f in (ck_whole, ck_cut):
+        if os.path.exists(f):
+            os.remove(f)
+    args = [IBL_TEST_SCENE, "--samples", "8", "--spp-chunk", "4",
+            "--no-progress"]
+    t0 = time.time()
+    if cli.main(args + ["--checkpoint", ck_whole, "--output", whole]) != 0:
+        raise AssertionError("the CLI failed")
+    cli_s = time.time() - t0
+
+    # the cut: the second pass dies, the checkpoint keeps the first
+    real = mesh.render_image_sharded
+    passes = []
+
+    def dying(*a, **kw):
+        passes.append(kw["spp_offset"])
+        if len(passes) == 2:
+            raise KeyboardInterrupt("cut after the first pass")
+        return real(*a, **kw)
+
+    mesh.render_image_sharded = dying
+    try:
+        render_image_progressive(sp.load_scene(IBL_TEST_SCENE), 8, prng_key(0),
+                                 chunk=4, checkpoint_path=ck_cut,
+                                 checkpoint_every=4)
+        raise AssertionError("the cut render was not cut")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        mesh.render_image_sharded = real
+    done_at_cut = load_checkpoint(ck_cut)[1]
+    if done_at_cut != 4:
+        raise AssertionError(f"the cut checkpoint holds {done_at_cut} samples")
+    if cli.main(args + ["--checkpoint", ck_cut, "--output", cut]) != 0:
+        raise AssertionError("the resuming CLI failed")
+    with open(whole, "rb") as f:
+        a = f.read()
+    with open(cut, "rb") as f:
+        b = f.read()
+    emit("cli", scene=os.path.relpath(IBL_TEST_SCENE, HERE), samples=8,
+         spp_chunk=4, cli_s=cli_s, samples_at_cut=done_at_cut,
+         resumed_equals_whole=a == b, pfm_bytes=len(a))
+    if a != b:
+        raise AssertionError("the resumed film differs from the uninterrupted one")
+
+
+def kernels_line(results: dict, launches: dict, by_path: dict) -> dict:
     """The summary object: one entry per kernel, times from the N=65,536
     primary-ray case (the main path's chunk size), every ray set under
     ``cases``."""
@@ -447,7 +731,7 @@ def kernels_line(results: dict, launches: dict) -> dict:
                 "lane_step_share_4_rays_a_warp")}
                 for c in cases],
         })
-    return {"kernels": entries}
+    return {"kernels": entries, "launches_by_path": by_path}
 
 
 def main() -> int:
@@ -470,25 +754,40 @@ def main() -> int:
     import simplepath_tpu_torch as sp
     from simplepath_tpu_torch.scene import bvh
 
-    info = phase_device()
+    def timed(phase, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        emit("seconds", of=phase, s=time.time() - t0)
+        return out
+
+    info = timed("device", phase_device)
     if "build" in phases:
-        phase_build()
+        timed("build", phase_build)
 
     t0 = time.time()
     scene = sp.load_scene(SCENE)
     torch.cuda.synchronize()
     load_s = time.time() - t0
 
-    results, launches = {}, {}
+    results, by_path = {}, {}
+    ibl = None
+    if "paths" in phases or "parity" in phases:
+        ibl = timed("ibl_scene", ibl_bench_scene)
     if "kernels" in phases:
-        results = phase_kernels(scene)
+        results = timed("kernels", phase_kernels, scene)
     if "render" in phases:
-        launches = phase_render(scene, args.spp, load_s, bvh.LAST_BUILDER)
+        by_path["iterative_rrnee"] = timed(
+            "render", phase_render, scene, args.spp, load_s, bvh.LAST_BUILDER)
+    if "paths" in phases:
+        by_path.update(timed("paths", phase_paths, scene, ibl))
     if "parity" in phases:
-        phase_parity(scene)
+        timed("parity", phase_parity, scene, ibl)
+    if "cli" in phases:
+        timed("cli", phase_cli)
 
     if results:
-        print(json.dumps(kernels_line(results, launches)), flush=True)
+        print(json.dumps(kernels_line(
+            results, by_path.get("iterative_rrnee", {}), by_path)), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

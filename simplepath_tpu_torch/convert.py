@@ -22,7 +22,7 @@ import torch
 
 from .device import resolve_device
 from .scene.build import finalize_scene
-from .scene.types import (BVHArrays, CameraArrays, EnvLightArrays, ENV_IBL,
+from .scene.types import (BVHArrays, CameraArrays, EnvLightArrays,
                           MaterialArrays, PlaneArrays, Scene, SceneStatic,
                           SphereArrays, SphereLightArrays, TriangleArrays)
 
@@ -55,10 +55,6 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device=None) -> Scene:
     None`` means CUDA and raises without one."""
     device = resolve_device(device)
     static = SceneStatic(**static_fields)
-    if static.env_kind == ENV_IBL:
-        raise NotImplementedError(
-            "image-based environment lights are ported in a later slice of "
-            "simplepath_tpu_torch")
     if static.geom_shards:
         raise NotImplementedError(
             "geometry-sharded scenes are ported in a later slice of "

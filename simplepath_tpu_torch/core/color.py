@@ -1,15 +1,15 @@
-"""Color utilities: luminance.
+"""Color utilities: luminance, HSV→RGB.
 
-Counterpart of ``simplepath_tpu/core/color.py`` (the sRGB transfer and the
-HSV helper belong to later slices: image output beyond PFM and the
-mandelbrot integrator).  Colors are ``[..., 3]``.
+Counterpart of ``simplepath_tpu/core/color.py`` (the sRGB transfer belongs
+to a later slice: image output beyond PFM).  Colors are ``[..., 3]``.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import Tensor
 
-__all__ = ["relative_luminance"]
+__all__ = ["relative_luminance", "hsv_to_rgb"]
 
 _LUMA_WEIGHTS = (0.2126, 0.7152, 0.0722)  # Rec.709
 
@@ -18,3 +18,24 @@ def relative_luminance(c: Tensor) -> Tensor:
     return (_LUMA_WEIGHTS[0] * c[..., 0]
             + _LUMA_WEIGHTS[1] * c[..., 1]
             + _LUMA_WEIGHTS[2] * c[..., 2])
+
+
+def hsv_to_rgb(h: Tensor, s: Tensor, v: Tensor) -> Tensor:
+    """HSV → RGB (the reference's active branch), h, s, v in [0, 1].
+
+    Reference quirk, kept: the offset ``m = v - c`` is computed but never
+    added, so the result is the raw (c, x, 0) permutation of the sector."""
+    c = v * s
+    hprime = torch.floor(h * 6.0)
+    x = c * (1.0 - torch.abs(torch.remainder(hprime, 2.0) - 1.0))
+    zero = torch.zeros_like(c)
+    cases = torch.stack([
+        torch.stack([c, x, zero], dim=-1),
+        torch.stack([x, c, zero], dim=-1),
+        torch.stack([zero, c, x], dim=-1),
+        torch.stack([zero, x, c], dim=-1),
+        torch.stack([x, zero, c], dim=-1),
+        torch.stack([c, zero, x], dim=-1),
+    ])                                                   # [6, ..., 3]
+    idx = torch.remainder(hprime.to(torch.int64), 6)
+    return torch.gather(cases, 0, idx[None, ..., None].expand(1, *c.shape, 3))[0]

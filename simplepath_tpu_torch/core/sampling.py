@@ -19,7 +19,8 @@ TWO_PI = 2.0 * math.pi
 
 __all__ = ["sample_to_uniform_sphere", "uniform_sphere_pdf",
            "sample_to_uniform_hemisphere", "uniform_hemisphere_pdf",
-           "sample_to_concentric_disk", "sample_to_cosine_hemisphere"]
+           "sample_to_concentric_disk", "sample_to_cosine_hemisphere",
+           "spherical_theta", "spherical_phi"]
 
 
 def sample_to_uniform_sphere(u: Tensor) -> Tensor:
@@ -69,3 +70,14 @@ def sample_to_cosine_hemisphere(u: Tensor) -> Tensor:
     d = sample_to_concentric_disk(u)
     y = safe_sqrt(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2)
     return vec3(d[..., 0], y, d[..., 1])
+
+
+def spherical_theta(v: Tensor) -> Tensor:
+    """Polar angle from the +y axis."""
+    return torch.arccos(torch.clamp(v[..., 1], -0.9999999, 0.9999999))
+
+
+def spherical_phi(v: Tensor) -> Tensor:
+    """Azimuth in [0, 2π) around +y, from +x toward +z."""
+    p = torch.atan2(v[..., 2], v[..., 0])
+    return torch.where(p < 0.0, p + TWO_PI, p)

@@ -1,11 +1,11 @@
 """Light-transport integrators over batched ray wavefronts.
 
-Counterpart of ``simplepath_tpu/render/integrators.py``.  This slice ports
-the flagship, ``integrate_rrnee`` (IntegratorIterativeRRNEE); the other seven
-names raise ``NotImplementedError`` from :func:`make_integrator`.  The bounce
-loop is a Python loop over the whole wavefront with an ``alive`` mask; it
-exits as soon as every lane has terminated (one host sync per bounce).  An
-integrator maps (scene, ro[N,3], rd[N,3], keys[N,2]) -> L[N,3].
+Counterpart of ``simplepath_tpu/render/integrators.py``: all eight
+integrators of the scene DSL.  Each bounce loop is a Python loop over the
+whole wavefront with an ``alive`` mask; it exits as soon as every lane has
+terminated (one host sync per bounce).  An integrator maps (scene, ro[N,3],
+rd[N,3], keys[N,2], *, pcoords=[N,2] film coordinates) -> L[N,3]; the
+adaptive-RR one also threads its per-pixel statistics (``stats=``).
 
 Faithfully reproduced reference quirks (as in the JAX package):
 
@@ -19,10 +19,14 @@ Faithfully reproduced reference quirks (as in the JAX package):
   contribute ENVIRONMENT radiance.  With no env light it is identically zero
   and is skipped; with one, the closest-light search collapses into the
   occlusion test already being done.
+* ``brute_force`` (the recursive flavor) uses the signed cosine and a fresh
+  t_min = ε each bounce.
+* Whitted's specular recursion does not attenuate by the specular sample.
 
 RNG: every uniform draw has a static site id; per-depth keys are
-``fold_in(key, depth)`` so lanes and bounces decorrelate.  The streams are
-bit-equal to the JAX package's (core/rng.py).
+``fold_in(key, depth)`` so lanes and bounces decorrelate (direct lighting,
+one bounce, draws on the keys themselves).  The streams are bit-equal to
+the JAX package's (core/rng.py).
 """
 
 from __future__ import annotations
@@ -32,22 +36,27 @@ import os
 import torch
 from torch import Tensor
 
-from ..core.color import relative_luminance
+from ..core.color import hsv_to_rgb, relative_luminance
 from ..core.onb import onb_from_v, onb_to_local, onb_to_world
 from ..core.rng import fold_in, uniform_sites
 from ..core.smath import balance_heuristic_counts
 from ..core.vec import dot
-from ..scene.types import ENV_NONE, INTEGRATORS, Scene
+from ..scene.types import ENV_NONE, Scene
 from .intersect import INF_DISTANCE, RAY_EPSILON
 from .lights import (LightSample, env_light_pdf, env_light_radiance,
                      env_light_sample, get_ray_offset, get_ray_offset_nd,
                      sphere_light_pdf, sphere_light_sample)
-from .materials import (HitMaterial, MatSample, gather_material, material_eval,
-                        material_pdf, material_sample)
+from .materials import (PROP_SPECULAR, HitMaterial, MatSample, gather_material,
+                        material_eval, material_pdf, material_sample)
 from .traverse import (hit_shading, scene_intersect_batch,
                        scene_intersect_lights, scene_intersect_p_batch)
 
-__all__ = ["make_integrator", "integrate_rrnee", "INTEGRATOR_FNS"]
+__all__ = ["make_integrator", "INTEGRATOR_FNS", "integrate_direct_lighting",
+           "integrate_rrnee", "integrate_brute_force",
+           "integrate_brute_force_iterative",
+           "integrate_brute_force_iterative_rr",
+           "integrate_brute_force_iterative_dynamic_rr", "integrate_whitted",
+           "integrate_mandelbrot"]
 
 # Draw-site ids (stable across the codebase, equal to the JAX package's)
 SITE_MAT_LAYER = 0
@@ -58,6 +67,13 @@ SITE_LIGHT_BASE = 16          # per light l: base + 8*l + {0: light 2D, 1-3: NEE
 
 # wavefronts smaller than this are not worth sorting
 SORT_MIN_RAYS = 4096
+
+RR_CUTOFF = 0.1               # fixed Russian roulette: luminance threshold
+RR_MIN_SAMPLES = 16           # adaptive RR: observations before a bucket acts
+MANDELBROT_ITERATIONS = 4096
+# the Mandelbrot loop asks the device whether a lane is still active this
+# often (a host sync); finished lanes never change, so the image is the same
+MANDELBROT_CHECK_EVERY = 64
 
 
 def _light_sites(light_index: int) -> tuple[int, int, int, int]:
@@ -191,6 +207,32 @@ def _estimate_direct_mis_all(scene: Scene, p, nrm, wo_world, onb,
     return total + torch.where(strat2_ok[..., None], strat2, 0.0).sum(0)
 
 
+def _estimate_direct_all(scene: Scene, p, nrm, wo_world, onb, m: HitMaterial,
+                         keys, enabled) -> Tensor:
+    """estimate_direct without MIS, batched over the wavefront and summed
+    over all lights; every light's shadow rays go through one flat any-hit
+    launch of nl·N rays (masked lanes with a collapsed interval), as in
+    :func:`_estimate_direct_mis_all`."""
+    n = p.shape[0]
+    nl = _num_lights(scene)
+    if nl == 0:
+        return torch.zeros((n, 3), dtype=torch.float32, device=p.device)
+    u_light = uniform_sites(keys, [_light_sites(li)[0] for li in range(nl)])
+    ls, ls_ok = _light_samples_all(scene, p, nrm, u_light)      # [nl, N, ...]
+    wo_local = onb_to_local(onb, wo_world)
+    f = material_eval(m, wo_local, onb_to_local(onb[None], ls.wi))  # [nl,N,3]
+
+    live = enabled[None] & ls_ok
+    occluded = scene_intersect_p_batch(
+        scene, p[None].expand(nl, n, 3).reshape(-1, 3), ls.wi.reshape(-1, 3),
+        ls.t_min.reshape(-1),
+        torch.where(live, ls.t_max, -INF_DISTANCE).reshape(-1)).reshape(nl, n)
+    cos1 = torch.abs(dot(ls.wi, nrm[None]))
+    contrib = f * ls.L * (cos1 / torch.where(ls.pdf > 0, ls.pdf, 1.0))[..., None]
+    ok = ls_ok & (f != 0.0).any(dim=-1) & ~occluded
+    return torch.where(ok[..., None], contrib, 0.0).sum(0)
+
+
 def _sample_batch(scene: Scene, mid, wo_local, u_mat) -> tuple[HitMaterial, MatSample]:
     """Gather each lane's material and draw its bounce sample; ``u_mat`` is
     the [3, N, 2] uniforms of the sites (layer, lobe, 2D)."""
@@ -259,19 +301,20 @@ def _use_coherence_sort(scene: Scene, n_rays: int, device: torch.device) -> bool
 
 # ------------------------------------------------------------- integrators
 
-def integrate_rrnee(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor,
+def integrate_rrnee(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor, *,
+                    pcoords: Tensor | None = None,
                     sort: bool | None = None) -> Tensor:
     """IntegratorIterativeRRNEE — the flagship.
 
     ``keys`` is the [N,2] per-(pixel, sample) threefry keys.  ``sort``
     overrides the coherence-sort decision (None = by device and batch size);
-    the image is identical either way.
+    the image is identical either way.  Only this integrator sorts, as in the
+    JAX package.
     """
     n_rays = ro.shape[0]
     dev = ro.device
     max_depth = scene.static.max_depth
     rr_depth = scene.static.russian_roulette_depth
-    rr_cutoff = 0.1
     if sort is None:
         sort = _use_coherence_sort(scene, n_rays, dev)
     if sort:
@@ -325,8 +368,8 @@ def integrate_rrnee(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor,
 
         # Russian roulette
         lum = relative_luminance(new_throughput)
-        rr_active = (lum < rr_cutoff) if depth >= rr_depth else torch.zeros_like(alive)
-        q = torch.clamp_min(lum / rr_cutoff, 0.05)
+        rr_active = (lum < RR_CUTOFF) if depth >= rr_depth else torch.zeros_like(alive)
+        q = torch.clamp_min(lum / RR_CUTOFF, 0.05)
         rr_continue = u_mat[3, :, 0] < q
         new_throughput = torch.where((rr_active & rr_continue)[:, None],
                                      new_throughput / q[:, None], new_throughput)
@@ -353,16 +396,257 @@ def integrate_rrnee(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor,
     return out
 
 
-INTEGRATOR_FNS = {"iterative_rrnee": integrate_rrnee}
+def integrate_direct_lighting(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor,
+                              *, pcoords: Tensor | None = None) -> Tensor:
+    """DirectLightingIntegrator: the first hit's direct light (no MIS), or
+    the light the camera ray sees.  Draws on ``keys`` themselves (no
+    per-depth fold)."""
+    n_rays = ro.shape[0]
+    dev = ro.device
+    t_min = torch.full((n_rays,), RAY_EPSILON, dtype=torch.float32, device=dev)
+    t_max0 = torch.full((n_rays,), INF_DISTANCE, dtype=torch.float32, device=dev)
+    lhit, ldist, lL = scene_intersect_lights(scene, ro, rd, t_min, t_max0)
+    hit = scene_intersect_batch(scene, ro, rd, t_min,
+                                torch.where(lhit, ldist, t_max0))
+    p, nrm, mid = hit_shading(scene, hit, ro, rd)
+    onb = onb_from_v(nrm)
+    m = gather_material(scene.materials, mid)
+    contrib = _estimate_direct_all(scene, p, nrm, -rd, onb, m, keys, hit.valid)
+    L = torch.where(hit.valid[:, None], contrib, 0.0)
+    return torch.where((~hit.valid & lhit)[:, None], lL, L)
+
+
+def _integrate_bruteforce_common(scene: Scene, ro: Tensor, rd: Tensor,
+                                 keys: Tensor, *, abs_cosine: bool,
+                                 offset_tmin: bool, rr: str,
+                                 stats: tuple[Tensor, Tensor] | None = None):
+    """Shared bounce loop of the brute-force family: no NEE, radiance only
+    where a path escapes to a light.  ``rr`` is "none", "fixed" (luminance
+    below RR_CUTOFF) or "dynamic" (below the pixel's running mean at this
+    depth, see :func:`integrate_brute_force_iterative_dynamic_rr`).
+    Returns L, and with ``rr="dynamic"`` also the updated stats."""
+    n_rays = ro.shape[0]
+    dev = ro.device
+    max_depth = scene.static.max_depth
+    rr_depth = scene.static.russian_roulette_depth
+    neg = -INF_DISTANCE
+    sites = (SITE_MAT_LAYER, SITE_MAT_LOBE, SITE_MAT_2D) + (
+        (SITE_RR,) if rr != "none" else ())
+    if rr == "dynamic":
+        mean, count = (x.clone() for x in stats)
+        nd = mean.shape[1]
+
+    t_min = torch.full((n_rays,), RAY_EPSILON, dtype=torch.float32, device=dev)
+    throughput = torch.ones((n_rays, 3), dtype=torch.float32, device=dev)
+    L = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones(n_rays, dtype=torch.bool, device=dev)
+
+    for depth in range(max_depth):
+        if not bool(alive.any()):       # one host sync per bounce
+            break
+        u = uniform_sites(fold_in(keys, depth), sites)
+        lhit, ldist, lL = scene_intersect_lights(
+            scene, ro, rd, t_min, torch.where(alive, INF_DISTANCE, neg))
+        t_max = torch.where(lhit, ldist, INF_DISTANCE)
+        hit = scene_intersect_batch(scene, ro, rd, t_min,
+                                    torch.where(alive, t_max, neg))
+
+        p, nrm, mid = hit_shading(scene, hit, ro, rd)
+        onb = onb_from_v(nrm)
+        _, ms = _sample_batch(scene, mid, onb_to_local(onb, -rd), u)
+        ms_ok = (ms.pdf > 0.0) & (ms.color != 0.0).any(dim=-1)
+
+        wi = onb_to_world(onb, ms.wi)
+        cosine_signed = dot(wi, nrm)
+        cosine = torch.abs(cosine_signed) if abs_cosine else cosine_signed
+        contrib = cosine[:, None] * ms.color / torch.where(ms.pdf > 0, ms.pdf, 1.0)[:, None]
+        new_throughput = throughput * contrib
+        continues = alive & hit.valid & ms_ok
+
+        rr_active = None
+        if rr == "fixed" and depth >= rr_depth:
+            lum = relative_luminance(new_throughput)
+            rr_active = lum < RR_CUTOFF
+            q = torch.clamp_min(lum / RR_CUTOFF, 0.05)
+        col = depth - rr_depth                      # this depth's bucket
+        in_bucket = rr == "dynamic" and 0 <= col < nd
+        if in_bucket:
+            bucket_mean, bucket_n = mean[:, col], count[:, col]
+            lum = relative_luminance(new_throughput)
+            rr_active = (bucket_n >= RR_MIN_SAMPLES) & (lum < bucket_mean)
+            q = torch.clamp_min(
+                lum / torch.where(bucket_mean > 0, bucket_mean, 1.0), 0.05)
+        if rr_active is not None:
+            rr_continue = u[3, :, 0] < q
+            new_throughput = torch.where((rr_active & rr_continue)[:, None],
+                                         new_throughput / q[:, None], new_throughput)
+            continues = continues & ~(rr_active & ~rr_continue)
+        if in_bucket:
+            # survivors push their post-reweight luminance into the bucket
+            n_new = bucket_n + 1
+            mean_new = bucket_mean + (relative_luminance(new_throughput)
+                                      - bucket_mean) / n_new.to(torch.float32)
+            mean[:, col] = torch.where(continues, mean_new, bucket_mean)
+            count[:, col] = torch.where(continues, n_new, bucket_n)
+
+        L = L + torch.where((alive & ~hit.valid & lhit)[:, None], throughput * lL, 0.0)
+
+        c3 = continues[:, None]
+        ro = torch.where(c3, p, ro)
+        rd = torch.where(c3, wi, rd)
+        if offset_tmin:
+            t_min = torch.where(continues, get_ray_offset(torch.abs(cosine_signed)), t_min)
+        throughput = torch.where(c3, new_throughput, throughput)
+        alive = continues
+
+    if rr == "dynamic":
+        return L, (mean, count)
+    return L
+
+
+def integrate_brute_force(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor,
+                          *, pcoords: Tensor | None = None) -> Tensor:
+    """BruteForceIntegrator, the recursive flavor: signed cosine, fresh ε
+    t_min every bounce."""
+    return _integrate_bruteforce_common(scene, ro, rd, keys, abs_cosine=False,
+                                        offset_tmin=False, rr="none")
+
+
+def integrate_brute_force_iterative(scene: Scene, ro: Tensor, rd: Tensor,
+                                    keys: Tensor, *,
+                                    pcoords: Tensor | None = None) -> Tensor:
+    """BruteForceIntegratorIterative."""
+    return _integrate_bruteforce_common(scene, ro, rd, keys, abs_cosine=True,
+                                        offset_tmin=True, rr="none")
+
+
+def integrate_brute_force_iterative_rr(scene: Scene, ro: Tensor, rd: Tensor,
+                                       keys: Tensor, *,
+                                       pcoords: Tensor | None = None) -> Tensor:
+    """BruteForceIntegratorIterativeRR: fixed Russian roulette."""
+    return _integrate_bruteforce_common(scene, ro, rd, keys, abs_cosine=True,
+                                        offset_tmin=True, rr="fixed")
+
+
+def dynamic_rr_buckets(scene: Scene) -> int:
+    """Depth buckets of the adaptive-RR statistics."""
+    return max(1, scene.static.max_depth - scene.static.russian_roulette_depth)
+
+
+def integrate_brute_force_iterative_dynamic_rr(
+        scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor, *,
+        pcoords: Tensor | None = None,
+        stats: tuple[Tensor, Tensor] | None = None):
+    """BruteForceIntegratorIterativeDynamicRR — the reference's adaptive-RR
+    variant.
+
+    Adaptive RR signal: per-pixel per-depth running MEAN of throughput
+    luminance across samples, as Welford state ``(mean[N, nd] f32,
+    count[N, nd] i32)`` threaded through the spp loop by the film — pass it
+    as ``stats`` and this returns ``(L, new_stats)``.  With ``stats=None`` a
+    zero-count state is used for this one sample (RR never fires below
+    RR_MIN_SAMPLES observations) and only L is returned.
+
+    Per depth >= russian_roulette_depth: once a bucket has RR_MIN_SAMPLES
+    observations and the path's luminance is below the bucket mean, continue
+    with probability q = max(0.05, lum/mean); survivors are reweighted and
+    push their POST-reweight luminance.  Signed cosine, offset t_min.
+    """
+    if stats is None:
+        nd = dynamic_rr_buckets(scene)
+        zeros = lambda dt: torch.zeros((ro.shape[0], nd), dtype=dt, device=ro.device)
+        return _integrate_bruteforce_common(
+            scene, ro, rd, keys, abs_cosine=False, offset_tmin=True,
+            rr="dynamic", stats=(zeros(torch.float32), zeros(torch.int32)))[0]
+    return _integrate_bruteforce_common(scene, ro, rd, keys, abs_cosine=False,
+                                        offset_tmin=True, rr="dynamic",
+                                        stats=stats)
+
+
+def integrate_whitted(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor, *,
+                      pcoords: Tensor | None = None) -> Tensor:
+    """WhittedIntegrator: direct lighting at every hit of a specular chain,
+    which is NOT attenuated by the specular sample (reference quirk)."""
+    n_rays = ro.shape[0]
+    dev = ro.device
+    neg = -INF_DISTANCE
+    t_min = torch.full((n_rays,), RAY_EPSILON, dtype=torch.float32, device=dev)
+    L = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones(n_rays, dtype=torch.bool, device=dev)
+
+    for depth in range(scene.static.max_depth):
+        if not bool(alive.any()):       # one host sync per bounce
+            break
+        dkeys = fold_in(keys, depth)
+        lhit, ldist, lL = scene_intersect_lights(
+            scene, ro, rd, t_min, torch.where(alive, INF_DISTANCE, neg))
+        t_max = torch.where(lhit, ldist, INF_DISTANCE)
+        hit = scene_intersect_batch(scene, ro, rd, t_min,
+                                    torch.where(alive, t_max, neg))
+
+        p, nrm, mid = hit_shading(scene, hit, ro, rd)
+        onb = onb_from_v(nrm)
+        wo = -rd
+        m = gather_material(scene.materials, mid)
+        dmask = alive & hit.valid
+        direct = _estimate_direct_all(scene, p, nrm, wo, onb, m, dkeys, dmask)
+        L = L + torch.where(dmask[:, None], direct, 0.0)
+        L = L + torch.where((alive & ~hit.valid & lhit)[:, None], lL, 0.0)
+
+        u_mat = uniform_sites(dkeys, (SITE_MAT_LAYER, SITE_MAT_LOBE, SITE_MAT_2D))
+        ms = material_sample(m, onb_to_local(onb, wo), u_mat[0, :, 0],
+                             u_mat[1, :, 0], u_mat[2])
+        continues = dmask & ((ms.properties & PROP_SPECULAR) != 0)
+        c3 = continues[:, None]
+        ro = torch.where(c3, p, ro)
+        rd = torch.where(c3, onb_to_world(onb, ms.wi), rd)
+        alive = continues
+    return L
+
+
+def integrate_mandelbrot(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor, *,
+                         pcoords: Tensor | None = None) -> Tensor:
+    """MandelbrotIntegrator — the film's smoke test: the escape count of
+    the jittered film position ``pcoords`` over MANDELBROT_ITERATIONS,
+    colored through HSV.  Traces no ray."""
+    if pcoords is None:
+        raise ValueError("the mandelbrot integrator needs pcoords (film x, y)")
+    width, height = scene.static.width, scene.static.height
+    x0, x1, y0, y1 = -2.0, 1.0, -1.0, 1.0
+    x = x0 + pcoords[:, 0] * (x1 - x0) / width
+    y = y0 + pcoords[:, 1] * (y1 - y0) / height
+
+    zr, zi = x.clone(), y.clone()
+    count = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    active = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    for it in range(MANDELBROT_ITERATIONS):
+        if it % MANDELBROT_CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        active = active & (zr * zr + zi * zi <= 4.0)
+        new_re = zr * zr - zi * zi
+        new_im = 2.0 * zr * zi
+        zr = torch.where(active, x + new_re, zr)
+        zi = torch.where(active, y + new_im, zi)
+        count = count + active.to(torch.int32)
+    value = count.to(torch.float32) / MANDELBROT_ITERATIONS
+    hue = torch.remainder(torch.pow(value * 360.0, 1.5), 360.0) / 360.0
+    return hsv_to_rgb(hue, torch.ones_like(value), value)
+
+
+INTEGRATOR_FNS = {
+    "mandelbrot": integrate_mandelbrot,
+    "brute_force": integrate_brute_force,
+    "brute_force_iterative": integrate_brute_force_iterative,
+    "brute_force_iterative_rr": integrate_brute_force_iterative_rr,
+    "brute_force_iterative_dynamic_rr": integrate_brute_force_iterative_dynamic_rr,
+    "iterative_rrnee": integrate_rrnee,
+    "direct_lighting": integrate_direct_lighting,
+    "whitted": integrate_whitted,
+}
 
 
 def make_integrator(name: str):
-    """The integrator function for a DSL name.  Only ``iterative_rrnee`` is
-    ported so far; the other names of ``INTEGRATORS`` raise."""
-    if name in INTEGRATOR_FNS:
-        return INTEGRATOR_FNS[name]
-    if name in INTEGRATORS:
-        raise NotImplementedError(
-            f"integrator {name!r} is ported in a later slice of "
-            "simplepath_tpu_torch; only 'iterative_rrnee' is available")
-    raise ValueError(f"unknown integrator {name!r}")
+    """The integrator function for a DSL name (one of ``INTEGRATORS``)."""
+    if name not in INTEGRATOR_FNS:
+        raise ValueError(f"unknown integrator {name!r}")
+    return INTEGRATOR_FNS[name]

@@ -1,9 +1,9 @@
 """Light sampling, pdf, radiance and light-ray intersection, batched.
 
-Counterpart of ``simplepath_tpu/render/lights.py`` for sphere lights and the
-constant environment light (the image-based light is a later slice).  Every
-function takes the whole wavefront: ``p``, ``n``, ``ro``, ``rd`` are
-``[N,3]``, ``u`` is ``[N,2]``.
+Counterpart of ``simplepath_tpu/render/lights.py``: sphere lights, the
+constant environment light and the image-based one.  Every function takes
+the whole wavefront: ``p``, ``n``, ``ro``, ``rd`` are ``[N,3]``, ``u`` is
+``[N,2]``.
 
 Sphere light sampling reproduces the reference's scheme exactly:
 cosine-hemisphere POINT sampling toward the observer with the uniform-CONE
@@ -18,10 +18,13 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
+from ..core.distribution import (Distribution1D, Distribution2D, pdf_2d,
+                                 sample_continuous_2d)
 from ..core.onb import onb_from_v, onb_to_world
-from ..core.sampling import (TWO_PI, sample_to_cosine_hemisphere,
-                             sample_to_uniform_sphere, uniform_sphere_pdf)
-from ..core.vec import dot, length, matvec3, normalize, sqr_length
+from ..core.sampling import (PI, TWO_PI, sample_to_cosine_hemisphere,
+                             sample_to_uniform_sphere, spherical_phi,
+                             spherical_theta, uniform_sphere_pdf)
+from ..core.vec import dot, length, matvec3, normalize, sqr_length, vec3
 from ..scene.types import ENV_CONST, EnvLightArrays, SphereLightArrays
 from .intersect import INF_DISTANCE, RAY_EPSILON, sphere_quadratic
 
@@ -49,13 +52,6 @@ def get_ray_offset(cos_d: Tensor) -> Tensor:
 def get_ray_offset_nd(n: Tensor, d: Tensor) -> Tensor:
     """Offset from a normal/direction pair."""
     return get_ray_offset(torch.abs(dot(n, d)))
-
-
-def _require_const(env_kind: int) -> None:
-    if env_kind != ENV_CONST:
-        raise NotImplementedError(
-            "image-based environment lights are ported in a later slice of "
-            "simplepath_tpu_torch")
 
 
 # ------------------------------------------------------------ sphere light
@@ -131,26 +127,72 @@ def sphere_light_intersect_p(lights: SphereLightArrays, li: int, ro: Tensor, rd:
     return sphere_light_intersect(lights, li, ro, rd, t_min, t_max)[1]
 
 
-# ------------------------------------------------------------ env light
+# ------------------------------------------------------------ env lights
+
+def _env_distribution(env: EnvLightArrays) -> Distribution2D:
+    marg = Distribution1D(env.cdf_marg_f, env.cdf_marg, env.cdf_marg_int, 0.0, 1.0)
+    return Distribution2D(env.cdf_cond_f, env.cdf_cond, env.cdf_cond_int, marg)
+
+
+def _ibl_lookup(env: EnvLightArrays, s: Tensor, t: Tensor) -> Tensor:
+    """Nearest-neighbor texel fetch, wrapping horizontally and clamping
+    vertically; ``torch.round`` rounds half to even, as ``jnp.round``."""
+    s = torch.remainder(1.0 + torch.remainder(s, 1.0), 1.0)     # wrap
+    t = torch.clamp(t, 0.0, 0.99999994)                         # clamp
+    h, w = env.image.shape[0], env.image.shape[1]
+    x = torch.clamp_max(torch.round(s * w).to(torch.int64), w - 1)
+    y = torch.clamp_max(torch.round(t * h).to(torch.int64), h - 1)
+    return env.image[y, x]
+
+
+def _ibl_solid_angle_pdf(map_pdf: Tensor, sin_theta: Tensor) -> Tensor:
+    """Map-space pdf → solid-angle pdf, 0 at the poles."""
+    pole = sin_theta == 0.0
+    return torch.where(pole, 0.0, map_pdf / (
+        2.0 * PI * PI * torch.where(pole, 1.0, sin_theta)))
+
 
 def env_light_sample(env: EnvLightArrays, env_kind: int, u: Tensor) -> LightSample:
-    """Constant environment light: a uniform direction on the sphere."""
-    _require_const(env_kind)
-    wi = sample_to_uniform_sphere(u)
+    """Constant light: a uniform direction on the sphere.  Image-based
+    light: a direction drawn from the luminance table (marginal row, then
+    conditional column), radiance from the nearest texel."""
     n = u.shape[0]
     full = lambda v: torch.full((n,), v, dtype=torch.float32, device=u.device)
-    return LightSample(L=env.radiance.expand(n, 3),
-                       pdf=full(uniform_sphere_pdf()), wi=wi,
-                       t_min=full(RAY_EPSILON), t_max=full(INF_DISTANCE))
+    if env_kind == ENV_CONST:
+        wi = sample_to_uniform_sphere(u)
+        return LightSample(L=env.radiance.expand(n, 3),
+                           pdf=full(uniform_sphere_pdf()), wi=wi,
+                           t_min=full(RAY_EPSILON), t_max=full(INF_DISTANCE))
+    st, map_pdf = sample_continuous_2d(_env_distribution(env), u)
+    theta = st[:, 1] * PI
+    phi = st[:, 0] * TWO_PI
+    ct, stheta = torch.cos(theta), torch.sin(theta)
+    wi = matvec3(env.l2w, vec3(stheta * torch.cos(phi), ct, stheta * torch.sin(phi)))
+    empty = map_pdf == 0.0
+    pdf = torch.where(empty, 0.0, _ibl_solid_angle_pdf(map_pdf, stheta))
+    L = torch.where(empty[:, None], 0.0, _ibl_lookup(env, st[:, 0], st[:, 1]))
+    return LightSample(L=L, pdf=pdf, wi=wi, t_min=full(RAY_EPSILON),
+                       t_max=full(INF_DISTANCE))
 
 
 def env_light_pdf(env: EnvLightArrays, env_kind: int, wi: Tensor) -> Tensor:
-    _require_const(env_kind)
-    return torch.full(wi.shape[:-1], uniform_sphere_pdf(), dtype=torch.float32,
-                      device=wi.device)
+    """Solid-angle pdf of drawing ``wi`` ([..., 3]) from the light."""
+    if env_kind == ENV_CONST:
+        return torch.full(wi.shape[:-1], uniform_sphere_pdf(),
+                          dtype=torch.float32, device=wi.device)
+    w = matvec3(env.w2l, wi)
+    theta = spherical_theta(w)
+    phi = spherical_phi(w)
+    # Reference quirk: the v coordinate handed to the 2D pdf is theta * π
+    # (not theta / π); kept as it is.
+    map_pdf = pdf_2d(_env_distribution(env),
+                     torch.stack([phi / TWO_PI, theta * PI], dim=-1))
+    return _ibl_solid_angle_pdf(map_pdf, torch.sin(theta))
 
 
 def env_light_radiance(env: EnvLightArrays, env_kind: int, rd: Tensor) -> Tensor:
     """Radiance seen by a ray that escapes to infinity."""
-    _require_const(env_kind)
-    return env.radiance.expand(rd.shape)
+    if env_kind == ENV_CONST:
+        return env.radiance.expand(rd.shape)
+    w = normalize(matvec3(env.w2l, rd))
+    return _ibl_lookup(env, spherical_phi(w) / TWO_PI, spherical_theta(w) / PI)

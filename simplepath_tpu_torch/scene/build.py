@@ -5,11 +5,11 @@ of the reference (FileParser parse + Scene construction + BVH build): named
 materials become table rows, geometry becomes SoA primitive arrays (meshes
 loaded + world-baked), lights become light tables, and the BVH is built over
 the triangle soup.  Everything is assembled in numpy on the host and moved
-to ``device`` once at the end; the materials' rho table is built there, once
-per scene.
+to ``device`` once at the end (an image-based light's sampling tables with
+it, built once per scene); the materials' rho table is built there, once per
+scene.
 
-Not in this slice: the image-based environment light (raises
-``NotImplementedError``) and the persistent geometry cache.
+Not in this slice: the persistent geometry cache.
 """
 
 from __future__ import annotations
@@ -21,13 +21,15 @@ import os
 import numpy as np
 import torch
 
+from ..core.distribution import build_distribution_2d
 from ..device import resolve_device
+from ..io.pfm import read_pfm
 from ..render.camera import make_perspective_camera
 from .bvh import make_packed_records
 from .parser import ParsedScene, parse_sp
 from .ply import bake_mesh, read_ply
 from .stl import read_stl
-from .types import (ENV_CONST, ENV_NONE, MAT_GLOSSY, MAT_LAMBERTIAN,
+from .types import (ENV_CONST, ENV_IBL, ENV_NONE, MAT_GLOSSY, MAT_LAMBERTIAN,
                     BVHArrays, EnvLightArrays, MaterialArrays, PlaneArrays,
                     Scene, SceneStatic, SphereArrays, SphereLightArrays,
                     TriangleArrays)
@@ -94,23 +96,57 @@ def _pack_xform(cls, xs, **extra):
                w2o_l=stack(2, (3, 3)), w2o_t=stack(3, (3,)), **extra)
 
 
-def _build_env(light) -> tuple[int, EnvLightArrays]:
-    """Constant environment light table (the image-based light is a later
-    slice of the port)."""
-    if light.image is not None:
-        raise NotImplementedError(
-            "image-based environment lights (core/distribution.py, "
-            "io/texture.py) are ported in a later slice of "
-            "simplepath_tpu_torch; only constant environment lights load")
+def _luminance(c: np.ndarray) -> np.ndarray:
+    return 0.2126 * c[..., 0] + 0.7152 * c[..., 1] + 0.0722 * c[..., 2]
+
+
+def _build_env(light, base_dir: str) -> tuple[int, EnvLightArrays]:
+    """Environment light tables.  An image-based light reads its PFM, scales
+    it by the radiance, clamps it by luminance (the reference's
+    ``modify_image``) and builds the sampling tables of its 2x-resolution,
+    sin(theta)-weighted luminance (``create_distribution``) — in numpy, as
+    the JAX package does, then the CDFs through ``core.distribution``."""
+    radiance = np.asarray(light.radiance, np.float32)
     z = torch.zeros
-    env = EnvLightArrays(
-        radiance=_f32(light.radiance),
-        image=z((1, 1, 3)),
-        l2w=_f32(light.transform[0]), w2l=_f32(light.inverse[0]),
-        cdf_cond_f=z((1, 1)), cdf_cond=z((1, 2)), cdf_cond_int=z((1,)),
-        cdf_marg_f=z((1,)), cdf_marg=z((2,)), cdf_marg_int=z(()),
-    )
-    return ENV_CONST, env
+    tables = dict(image=z((1, 1, 3)), cdf_cond_f=z((1, 1)), cdf_cond=z((1, 2)),
+                  cdf_cond_int=z((1,)), cdf_marg_f=z((1,)), cdf_marg=z((2,)),
+                  cdf_marg_int=z(()))
+    kind = ENV_CONST
+    if light.image is not None:
+        kind = ENV_IBL
+        img = read_pfm(os.path.join(base_dir, light.image)).astype(np.float32)
+        img = img * radiance
+        max_r = np.float32(light.max_radiance)
+
+        # modify_image: inf → max_radiance; clamp by luminance
+        img = np.where(np.isinf(img), max_r, img)
+        over = _luminance(img) > max_r
+        maxc = np.max(img, axis=-1, keepdims=True)
+        img = img * np.where(over[..., None], max_r / np.maximum(maxc, 1e-30), 1.0)
+
+        # create_distribution: 2x resolution, nearest texel (wrap across,
+        # clamp down), sin(theta)-weighted luminance, clamped
+        h, w = img.shape[0], img.shape[1]
+        nv, nu = 2 * h, 2 * w
+        vp = (np.arange(nv) + 0.5) / nv
+        up = (np.arange(nu) + 0.5) / nu
+        x = np.minimum(np.round(np.mod(up, 1.0) * w).astype(np.int64), w - 1)
+        y = np.minimum(np.round(np.clip(vp, 0.0, np.nextafter(1.0, 0.0)) * h
+                                ).astype(np.int64), h - 1)
+        func = _luminance(img[y[:, None], x[None, :]]) * np.sin(np.pi * vp)[:, None]
+        func = np.where(np.isinf(func), max_r, func)
+        func = np.minimum(func, max_r).astype(np.float32)
+
+        dist = build_distribution_2d(torch.from_numpy(func))
+        tables = dict(image=_f32(img), cdf_cond_f=dist.conditional_f,
+                      cdf_cond=dist.conditional_cdf,
+                      cdf_cond_int=dist.conditional_int,
+                      cdf_marg_f=dist.marginal.function,
+                      cdf_marg=dist.marginal.cdf,
+                      cdf_marg_int=dist.marginal.integral)
+    env = EnvLightArrays(radiance=_f32(radiance), l2w=_f32(light.transform[0]),
+                         w2l=_f32(light.inverse[0]), **tables)
+    return kind, env
 
 
 def _build_geometry(mesh_jobs, use_bvh: bool | None) -> dict:
@@ -228,7 +264,7 @@ def build_scene(ps: ParsedScene, *, cli_integrator: str | None = None,
                          light.inverse[0], light.inverse[1]))
             sl_rad.append(light.radiance)
         else:
-            env_kind, env = _build_env(light)
+            env_kind, env = _build_env(light, ps.base_dir)
 
     radiance = (_f32(sl_rad) if sl_rad
                 else torch.zeros((0, 3), dtype=torch.float32))

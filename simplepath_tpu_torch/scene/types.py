@@ -35,7 +35,7 @@ ENV_CONST = 1
 ENV_IBL = 2
 
 # IntegratorType names of the scene DSL (the parser validates against this
-# list; the port so far implements "iterative_rrnee" only)
+# list)
 INTEGRATORS = (
     "mandelbrot",
     "brute_force",
@@ -201,9 +201,10 @@ class SphereLightArrays:
 
 @_tensor_dataclass
 class EnvLightArrays:
-    """Environment light.  For ENV_CONST only ``radiance`` is meaningful; the
-    image/CDF fields belong to the image-based light (a later slice) and are
-    carried as dummies so the field list matches the JAX package's."""
+    """Environment light.  For ENV_CONST only ``radiance`` is meaningful and
+    the image/CDF fields are dummies; for ENV_IBL they hold the radiance
+    image and the sampling tables of its luminance (``core.distribution``:
+    conditional rows, marginal over the rows)."""
     radiance: Any      # [3]
     image: Any         # [H,W,3] or dummy [1,1,3]
     l2w: Any           # [3,3]

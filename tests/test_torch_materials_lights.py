@@ -219,8 +219,6 @@ def test_constant_env_light():
           jax.vmap(lambda w: JL.env_light_pdf(je, JT.ENV_CONST, w))(jnp.asarray(WI)))
     close(TL.env_light_radiance(te, TT.ENV_CONST, wi),
           jax.vmap(lambda w: JL.env_light_radiance(je, JT.ENV_CONST, w))(jnp.asarray(WI)))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TL.env_light_sample(te, TT.ENV_IBL, torch.from_numpy(U2))
 
 
 def test_ray_offset():

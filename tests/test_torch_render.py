@@ -25,7 +25,6 @@ from simplepath_tpu_torch.convert import scene_from_numpy
 from simplepath_tpu_torch.core.rng import prng_key
 from simplepath_tpu_torch.parallel.mesh import render_image_sharded
 from simplepath_tpu_torch.render import integrators as TI
-from simplepath_tpu_torch.scene.types import INTEGRATORS
 
 # many small tensor ops: one intra-op thread is as fast, and the test
 # workers that run side by side do not fight over the cores
@@ -156,12 +155,6 @@ def test_spp_offset_composes(blob):
     b = T.render_rays(*args, 2, key, spp_offset=2, device="cpu")
     torch.testing.assert_close((a + b) / 2, full, rtol=1e-6, atol=1e-7)
     assert not torch.equal(a, b)
-
-
-@pytest.mark.parametrize("name", [n for n in INTEGRATORS if n != "iterative_rrnee"])
-def test_other_integrators_name_the_later_slice(name):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TI.make_integrator(name)
 
 
 def test_unknown_integrator_raises():

@@ -101,11 +101,6 @@ def test_scene_to_moves_every_tensor():
     assert moved.materials.rho_table is not None
 
 
-def test_image_based_env_light_names_the_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.load_scene(scene_path("g_ibl"), device="cpu")
-
-
 def _synthetic_mesh(n_side=110, seed=0):
     """A bumpy height-field of 2*(n_side-1)^2 (≥ 20k) triangles."""
     rs = np.random.RandomState(seed)
