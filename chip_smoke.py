@@ -30,6 +30,18 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            in passes of 4 with a checkpoint; a render cut after its first
            pass and resumed by the CLI equals the uninterrupted one bit for
            bit
+  train    diff.grad on the bench scene at depth 10: 3 make_train_step calls
+           (plain SGD, the albedo trained) on 65,536 pixels (every 4th row
+           and column) at 1 spp toward the port's own render at the true
+           parameters, from a flat 0.5 albedo; seconds, launches and peak
+           memory a step, one step at 4 spp; one step over every leaf and
+           over each group of leaves alone, and finite differences on the
+           camera and roughness leaves (recorded); a step's forward,
+           checkpointed and plain-autograd cost, and what a sample-level
+           checkpoint would save; on a 64x64 crop the gradient through the
+           kernels equals the one through their plain versions (rtol 1e-4,
+           atol 1e-6), and matches central differences (4 spp) on the
+           largest albedo and light-radiance gradients
 
 Each phase's seconds follow it on a line of their own.  Any failed phase
 raises (non-zero exit).  Without a CUDA device the script exits non-zero
@@ -56,7 +68,8 @@ sys.path.insert(0, HERE)
 SCENE = os.path.join(HERE, "scenes", "bunny_bench.sp")
 OUT_DIR = os.path.join(HERE, "chip_smoke_out")
 IBL_TEST_SCENE = os.path.join(HERE, "tests", "scenes", "g_ibl_rrnee.sp")
-PHASES = ("device", "build", "kernels", "render", "paths", "parity", "cli")
+PHASES = ("device", "build", "kernels", "render", "paths", "parity", "cli",
+          "train")
 # the traced integrators besides the flagship, and whether each has NEE
 # (next-event estimation: shadow rays through sp_anyhit)
 PATHS = {"direct_lighting": True, "brute_force": False,
@@ -363,7 +376,8 @@ def phase_kernels(scene) -> dict:
     return results
 
 
-def phase_render(scene, spp: int, load_s: float, builder: str) -> tuple:
+def phase_render(scene, spp: int, load_s: float, builder: str | None,
+                 geometry_cache: str | None) -> tuple:
     from simplepath_tpu_torch.core.rng import prng_key
     from simplepath_tpu_torch.io.pfm import write_image
     from simplepath_tpu_torch.parallel.mesh import render_image_sharded
@@ -398,7 +412,9 @@ def phase_render(scene, spp: int, load_s: float, builder: str) -> tuple:
     emit("render", scene=os.path.relpath(SCENE, HERE), width=st.width,
          height=st.height, max_depth=st.max_depth, spp=spp,
          triangles=st.num_triangles, record_rows=int(scene.bvh.records.shape[0]),
-         load_s=load_s, bvh_builder=builder, render_s=render_s,
+         load_s=load_s, load="warm" if geometry_cache else "cold",
+         geometry_cache=geometry_cache and os.path.relpath(geometry_cache, HERE),
+         bvh_builder=None if geometry_cache else builder, render_s=render_s,
          camera_paths_per_s=paths / render_s, launches=launches,
          image_mean=mean, output=os.path.relpath(out_path, HERE),
          max_memory_allocated=torch.cuda.max_memory_allocated())
@@ -703,6 +719,317 @@ def phase_cli() -> None:
         raise AssertionError("the resumed film differs from the uninterrupted one")
 
 
+TRAIN_SPP = 1
+TRAIN_STEPS = 3
+TRAIN_LR = 0.05             # make_train_step's default
+# make_train_step's tested use on this scene: the albedo alone (the setup of
+# tests/test_inverse.py).  A step over every leaf raises the loss here (see
+# leaf_group_steps).
+TRAIN_LEAVES = ("mat_albedo",)
+CAMERA_LEAVES = ("cam_eye", "cam_to", "cam_up", "cam_fov")
+LEAF_GROUPS = {"every_leaf": None, "mat_albedo": ("mat_albedo",),
+               "mat_roughness": ("mat_roughness",),
+               "mat_ior_and_clearcoat": ("mat_ior", "mat_cc_ior",
+                                         "mat_cc_color"),
+               "camera": CAMERA_LEAVES, "light_radiance": ("light_radiance",)}
+CROP = (480, 544)            # the 64x64 crop of the gradient checks
+
+
+def bench_batch(scene, every: int = 4):
+    """Every ``every``-th row and column of the frame: 256 x 256 = 65,536
+    pixels spread over the 1024 x 1024 bench frame, one 65,536-ray chunk."""
+    st = scene.static
+    ys, xs = torch.meshgrid(torch.arange(0, st.height, every, device=scene.device),
+                            torch.arange(0, st.width, every, device=scene.device),
+                            indexing="ij")
+    return xs.reshape(-1), ys.reshape(-1)
+
+
+def crop_batch(scene):
+    r = torch.arange(*CROP, device=scene.device)
+    ys, xs = torch.meshgrid(r, r, indexing="ij")
+    return xs.reshape(-1), ys.reshape(-1)
+
+
+def finite(params: dict) -> bool:
+    return all(bool(torch.isfinite(v).all()) for v in params.values())
+
+
+def argmax_index(t: torch.Tensor) -> tuple:
+    return tuple(int(i) for i in np.unravel_index(int(t.abs().argmax()),
+                                                  tuple(t.shape)))
+
+
+def train_step_timed(step, params, target, xs, ys, key) -> tuple:
+    """One make_train_step call → (new params, loss, seconds, launches of
+    each kernel, peak bytes allocated)."""
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(ct.launch_counts)
+    t0 = time.time()
+    new, loss = step(params, target, xs, ys, key)
+    loss = float(loss)                         # synchronises
+    torch.cuda.synchronize()
+    return (new, loss, time.time() - t0,
+            {k: ct.launch_counts[k] - before[k] for k in before},
+            torch.cuda.max_memory_allocated())
+
+
+def measured(fn) -> tuple:
+    """(fn(), seconds, peak bytes allocated)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, torch.cuda.max_memory_allocated()
+
+
+def step_cost(scene, params, target, xs, ys, key) -> dict:
+    """Where a 1-spp step's time goes: the forward alone (no graph), the
+    checkpointed gradient (device kernels and their busy time counted by
+    the profiler), and the same gradient through plain autograd with no
+    checkpoints (the scene not differentiable), with the peak memory of
+    each and the largest difference between the two gradients.  Then the
+    albedo gradient at 1 and 4 spp with the bounce checkpoints, and with a
+    checkpoint around each sample as well: what a sample-level checkpoint
+    would buy in memory and cost in time."""
+    from torch.utils.checkpoint import checkpoint
+
+    from simplepath_tpu_torch.diff import grad as G
+    from simplepath_tpu_torch.render.film import render_rays
+
+    def forward():
+        with torch.no_grad():
+            return G.render_loss(scene, params, target, xs, ys, TRAIN_SPP, key)
+
+    def plain():
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        img = render_rays(G.set_params(scene, leaves), xs, ys, TRAIN_SPP, key)
+        g = torch.autograd.grad(torch.mean((img - target) ** 2),
+                                list(leaves.values()), allow_unused=True)
+        return {k: torch.zeros_like(v) if x is None else x
+                for (k, v), x in zip(leaves.items(), g)}
+
+    _, fwd_s, fwd_peak = measured(forward)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        (_, g_ck), ck_s, ck_peak = measured(lambda: G.render_loss_and_grad(
+            scene, params, target, xs, ys, TRAIN_SPP, key))
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    g_plain, plain_s, plain_peak = measured(plain)
+    res = dict(forward_s=fwd_s, forward_peak_bytes=fwd_peak,
+               checkpointed_s=ck_s, checkpointed_peak_bytes=ck_peak,
+               checkpointed_cuda_launches=sum(e.count for e in cuda),
+               checkpointed_device_busy_s=sum(
+                   e.self_device_time_total for e in cuda) * 1e-6,
+               plain_autograd_s=plain_s, plain_autograd_peak_bytes=plain_peak,
+               grad_max_abs_diff={k: float((g_ck[k] - g_plain[k]).abs().max())
+                                  for k in g_ck})
+
+    def albedo_grad(spp, per_sample):
+        """The albedo gradient at ``spp``; ``per_sample`` also checkpoints
+        each sample around the bounce checkpoints (the JAX package's
+        layout), rendering it as a 1-spp render at its absolute index."""
+        leaf = params["mat_albedo"].detach().requires_grad_(True)
+        scene_p = dataclasses.replace(G.set_params(
+            scene, dict(params, mat_albedo=leaf)), static=dataclasses.replace(
+                scene.static, differentiable=True))
+        if per_sample:
+            img = sum(checkpoint(render_rays, scene_p, xs, ys, 1, key, None, s,
+                                 use_reentrant=False, preserve_rng_state=False)
+                      for s in range(spp)) / spp
+        else:
+            img = render_rays(scene_p, xs, ys, spp, key)
+        return torch.autograd.grad(torch.mean((img - target) ** 2), leaf)[0]
+
+    for spp in (1, 4):
+        g_bounce, s, peak = measured(lambda: albedo_grad(spp, False))
+        res[f"bounce_checkpoints_spp{spp}"] = dict(s=s, peak_bytes=peak)
+        g_both, s, peak = measured(lambda: albedo_grad(spp, True))
+        res[f"sample_and_bounce_checkpoints_spp{spp}"] = dict(
+            s=s, peak_bytes=peak,
+            grad_max_abs_diff=float((g_both - g_bounce).abs().max()))
+    emit("train", check="step_cost", pixels=int(xs.numel()), spp=TRAIN_SPP,
+         **res)
+    return res
+
+
+def grad_parity(scene, params, target, xs, ys, key) -> None:
+    """The crop's gradient through the CUDA kernels and through their plain
+    versions, both on the card: every leaf allclose at rtol 1e-4, atol 1e-6
+    (the backward of the gathers accumulates with atomics, so the order of
+    its sums varies)."""
+    from simplepath_tpu_torch.diff import grad as G
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+    loss_k, g_k = G.render_loss_and_grad(scene, params, target, xs, ys, 1, key)
+    with ct.plain_versions():
+        loss_p, g_p = G.render_loss_and_grad(scene, params, target, xs, ys, 1,
+                                             key)
+    diffs = {k: float((g_k[k] - g_p[k]).abs().max()) for k in g_k}
+    emit("train", check="gradient_parity", pixels=int(xs.numel()), spp=1,
+         loss_kernels=float(loss_k), loss_plain=float(loss_p),
+         max_abs_diff=diffs,
+         max_abs_grad={k: float(v.abs().max()) for k, v in g_k.items()})
+    for k in g_k:
+        if not torch.allclose(g_k[k], g_p[k], rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"gradient {k}: kernels and plain versions "
+                                 f"differ by {diffs[k]}")
+    if not finite(g_k):
+        raise AssertionError("the crop's gradient is not finite")
+
+
+def leaf_group_steps(scene, params, target, xs, ys, key) -> dict:
+    """One SGD step at the default rate from ``params``, over every leaf
+    (make_train_step's default) and over each group of leaves alone: the
+    loss after each, so a rise is put down to the leaves that make it.  The
+    full gradient must be finite."""
+    from simplepath_tpu_torch.diff import grad as G
+    loss0, g = G.render_loss_and_grad(scene, params, target, xs, ys,
+                                      TRAIN_SPP, key)
+    if not finite(g):
+        raise AssertionError("the bench batch's gradient is not finite")
+    after = {}
+    for name, leaves in LEAF_GROUPS.items():
+        p = {k: params[k] - TRAIN_LR * g[k]
+             if leaves is None or k in leaves else params[k] for k in params}
+        with torch.no_grad():
+            after[name] = float(G.render_loss(scene, p, target, xs, ys,
+                                              TRAIN_SPP, key))
+    emit("train", check="leaf_groups", lr=TRAIN_LR, loss_before=float(loss0),
+         loss_after_one_step=after,
+         max_abs_grad={k: float(v.abs().max()) for k, v in g.items()},
+         mat_roughness=params["mat_roughness"].tolist(),
+         mat_roughness_grad=g["mat_roughness"].tolist(),
+         camera_grad={k: g[k].tolist() for k in CAMERA_LEAVES})
+    return g
+
+
+def finite_difference(scene, params, target, xs, ys, key, spp, grads,
+                      leaf: str, idx: tuple, eps: float) -> dict:
+    """Central difference with common random numbers against the autodiff
+    gradient ``grads`` (taken at the same spp), and tests/test_gradients.py's
+    tolerance."""
+    from simplepath_tpu_torch.diff import grad as G
+    g_ad = float(grads[leaf][idx])
+
+    def loss(sign):
+        p = dict(params)
+        p[leaf] = params[leaf].clone()
+        p[leaf][idx] += sign * eps
+        with torch.no_grad():
+            return float(G.render_loss(scene, p, target, xs, ys, spp, key))
+    g_fd = (loss(+1) - loss(-1)) / (2 * eps)
+    return dict(leaf=leaf, index=list(idx), eps=eps, spp=spp,
+                pixels=int(xs.numel()), ad=g_ad, fd=g_fd,
+                tolerance=max(0.08 * max(abs(g_fd), abs(g_ad)), 2e-3))
+
+
+def fd_check(*args) -> None:
+    """finite_difference held to tests/test_gradients.py's tolerance and to
+    1 % of the gradient: albedo and radiance enter the image polynomially,
+    so with common random numbers the central difference is all but exact
+    (measured within 6e-5), and the 2e-3 floor alone would pass a gradient
+    half its size."""
+    r = finite_difference(*args)
+    emit("train", check="finite_differences", **r)
+    if not (abs(r["ad"] - r["fd"]) < r["tolerance"]
+            and abs(r["ad"] - r["fd"]) <= 1e-2 * abs(r["fd"])):
+        raise AssertionError(f"{r['leaf']}{r['index']}: ad={r['ad']} "
+                             f"fd={r['fd']}")
+
+
+def fd_probe(scene, params, target, xs, ys, key, spp, grads) -> None:
+    """Finite differences on the leaves a step over every leaf moves most
+    (the largest camera and roughness gradients), recorded and not held to
+    a tolerance: the estimator has no silhouette term, so a camera move
+    that carries an edge across a pixel shows in the difference only."""
+    for leaf in ("cam_to", "cam_up", "mat_roughness"):
+        idx = argmax_index(grads[leaf])
+        for eps in (1e-3, 1e-4):
+            emit("train", probe="finite_differences", **finite_difference(
+                scene, params, target, xs, ys, key, spp, grads, leaf, idx,
+                eps))
+
+
+def phase_train(scene) -> dict:
+    """Reverse-mode rendering on the bench scene: the train path is the 3
+    make_train_step calls over the albedo (launch counts set to 0 just
+    before them and read just after); then one step over every leaf and
+    over each group of leaves, the 4-spp step, the step's cost, the
+    kernel/plain gradient parity and the finite differences."""
+    from simplepath_tpu_torch.core.rng import prng_key
+    from simplepath_tpu_torch.diff import grad as G
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+    from simplepath_tpu_torch.render.film import render_rays
+
+    key = prng_key(7)
+    xs, ys = bench_batch(scene)
+    p_true = G.get_params(scene)
+    dscene = dataclasses.replace(scene, static=dataclasses.replace(
+        scene.static, differentiable=True))
+    t0 = time.time()
+    with torch.no_grad():
+        target = render_rays(dscene, xs, ys, TRAIN_SPP, key)
+    torch.cuda.synchronize()
+    target_s = time.time() - t0
+    p0 = dict(p_true, mat_albedo=torch.full_like(p_true["mat_albedo"], 0.5))
+    step = G.make_train_step(scene, TRAIN_SPP, lr=TRAIN_LR, leaves=TRAIN_LEAVES)
+
+    ct.reset_launch_counts()
+    steps = []
+    params = p0
+    for i in range(TRAIN_STEPS):
+        new, loss, s, launches, peak = train_step_timed(step, params, target,
+                                                        xs, ys, key)
+        if not finite(new):
+            raise AssertionError(f"step {i + 1}: non-finite gradient")
+        moved = {k: float((new[k] - params[k]).abs().max()) for k in new}
+        steps.append(dict(step=i + 1, loss=loss, seconds=s, launches=launches,
+                          max_memory_allocated=peak, moved=moved))
+        emit("train", **steps[-1], pixels=int(xs.numel()), spp=TRAIN_SPP,
+             max_depth=scene.static.max_depth, lr=TRAIN_LR,
+             leaves=list(TRAIN_LEAVES))
+        if i == 0 and not moved["mat_albedo"] > 0:
+            raise AssertionError("the albedo gradient is zero")
+        params = new
+    by_path = dict(ct.launch_counts)
+    with torch.no_grad():
+        loss_after = float(G.render_loss(scene, params, target, xs, ys,
+                                         TRAIN_SPP, key))
+    if not loss_after < steps[0]["loss"]:
+        raise AssertionError(f"the loss did not fall: {steps[0]['loss']} -> "
+                             f"{loss_after}")
+    for name, count in by_path.items():
+        if count <= 0:
+            raise AssertionError(f"the train steps never launched {name}")
+
+    step4 = G.make_train_step(scene, 4, lr=TRAIN_LR, leaves=TRAIN_LEAVES)
+    _, loss4, s4, launches4, peak4 = train_step_timed(step4, params, target,
+                                                      xs, ys, key)
+    emit("train", check="steps", target_s=target_s,
+         loss_before=steps[0]["loss"], loss_after=loss_after,
+         step_s=[x["seconds"] for x in steps], launches=by_path,
+         peak_bytes_spp1=max(x["max_memory_allocated"] for x in steps),
+         peak_bytes_spp4=peak4, step_s_spp4=s4, launches_spp4=launches4)
+
+    g0 = leaf_group_steps(scene, p0, target, xs, ys, key)
+    fd_probe(scene, p0, target, xs, ys, key, TRAIN_SPP, g0)
+    step_cost(scene, params, target, xs, ys, key)
+
+    cx, cy = crop_batch(scene)
+    ctarget = torch.full((cx.numel(), 3), 0.25, device=scene.device)
+    grad_parity(scene, p_true, ctarget, cx, cy, key)
+    _, g4 = G.render_loss_and_grad(scene, p_true, ctarget, cx, cy, 4, key)
+    crop = (scene, p_true, ctarget, cx, cy, key, 4, g4)
+    fd_check(*crop, "mat_albedo", argmax_index(g4["mat_albedo"]), 1e-3)
+    fd_check(*crop, "light_radiance", argmax_index(g4["light_radiance"]), 1e-2)
+    fd_probe(*crop)
+    return by_path
+
+
 def kernels_line(results: dict, launches: dict, by_path: dict) -> dict:
     """The summary object: one entry per kernel, times from the N=65,536
     primary-ray case (the main path's chunk size), every ray set under
@@ -752,7 +1079,7 @@ def main() -> int:
         return 1
 
     import simplepath_tpu_torch as sp
-    from simplepath_tpu_torch.scene import bvh
+    from simplepath_tpu_torch.scene import bvh, cache
 
     def timed(phase, fn, *args):
         t0 = time.time()
@@ -768,6 +1095,7 @@ def main() -> int:
     scene = sp.load_scene(SCENE)
     torch.cuda.synchronize()
     load_s = time.time() - t0
+    geometry_cache = cache.LAST_HIT     # None: built now (and cached)
 
     results, by_path = {}, {}
     ibl = None
@@ -777,13 +1105,16 @@ def main() -> int:
         results = timed("kernels", phase_kernels, scene)
     if "render" in phases:
         by_path["iterative_rrnee"] = timed(
-            "render", phase_render, scene, args.spp, load_s, bvh.LAST_BUILDER)
+            "render", phase_render, scene, args.spp, load_s, bvh.LAST_BUILDER,
+            geometry_cache)
     if "paths" in phases:
         by_path.update(timed("paths", phase_paths, scene, ibl))
     if "parity" in phases:
         timed("parity", phase_parity, scene, ibl)
     if "cli" in phases:
         timed("cli", phase_cli)
+    if "train" in phases:
+        by_path["train"] = timed("train", phase_train, scene)
 
     if results:
         print(json.dumps(kernels_line(

@@ -11,6 +11,8 @@ The caller (a test, a migration script) does the JAX side:
 Field paths are ``"<group>.<field>"`` with the group and field names of
 ``scene/types.py`` (identical in both packages).  A group the JAX scene does
 not have (``bvh`` or ``env`` is None there) is simply absent from ``arrays``.
+``params_from_numpy`` / ``params_to_numpy`` carry ``diff.grad``'s parameter
+dict the same way, so both packages can be handed identical parameters.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from .scene.types import (BVHArrays, CameraArrays, EnvLightArrays,
                           MaterialArrays, PlaneArrays, Scene, SceneStatic,
                           SphereArrays, SphereLightArrays, TriangleArrays)
 
-__all__ = ["scene_from_numpy"]
+__all__ = ["scene_from_numpy", "params_from_numpy", "params_to_numpy"]
 
 _GROUPS = {"spheres": SphereArrays, "planes": PlaneArrays,
            "triangles": TriangleArrays, "bvh": BVHArrays,
@@ -61,3 +63,17 @@ def scene_from_numpy(static_fields: dict, arrays: dict, device=None) -> Scene:
             "simplepath_tpu_torch")
     groups = {name: _group(cls, name, arrays) for name, cls in _GROUPS.items()}
     return finalize_scene(Scene(static=static, **groups), device)
+
+
+def params_from_numpy(arrays: dict, device=None) -> dict:
+    """A parameter dict of ``diff.grad`` from numpy arrays keyed as the JAX
+    package's ``get_params`` keys them (float32, on ``device``; None means
+    CUDA and raises without one)."""
+    device = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+            for k, v in arrays.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """A parameter (or gradient) dict as numpy arrays, detached."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

@@ -1,9 +1,12 @@
 """Light-transport integrators over batched ray wavefronts.
 
 Counterpart of ``simplepath_tpu/render/integrators.py``: all eight
-integrators of the scene DSL.  Each bounce loop is a Python loop over the
-whole wavefront with an ``alive`` mask; it exits as soon as every lane has
-terminated (one host sync per bounce).  An integrator maps (scene, ro[N,3],
+integrators of the scene DSL.  Each bounce is a ``step(depth, state) ->
+state`` function over the whole wavefront with an ``alive`` mask, driven by
+:func:`_bounce_loop`, which exits as soon as every lane has terminated (one
+host sync per bounce).  With ``scene.static.differentiable`` every bounce
+runs under ``torch.utils.checkpoint``, so reverse mode keeps only the
+per-bounce state.  An integrator maps (scene, ro[N,3],
 rd[N,3], keys[N,2], *, pcoords=[N,2] film coordinates) -> L[N,3]; the
 adaptive-RR one also threads its per-pixel statistics (``stats=``).
 
@@ -35,6 +38,7 @@ import os
 
 import torch
 from torch import Tensor
+from torch.utils.checkpoint import checkpoint
 
 from ..core.color import hsv_to_rgb, relative_luminance
 from ..core.onb import onb_from_v, onb_to_local, onb_to_world
@@ -294,9 +298,35 @@ def _scene_sort_bounds(scene: Scene) -> tuple[Tensor, Tensor]:
 
 def _use_coherence_sort(scene: Scene, n_rays: int, device: torch.device) -> bool:
     """Sorting only pays where divergence costs: on CUDA tensors, on a
-    triangle BVH, for wavefronts of at least SORT_MIN_RAYS rays."""
-    return (device.type == "cuda" and scene.static.has_bvh
-            and scene.static.num_triangles > 0 and n_rays >= SORT_MIN_RAYS)
+    triangle BVH, for wavefronts of at least SORT_MIN_RAYS rays; never in
+    differentiable mode (as in the JAX package)."""
+    return (device.type == "cuda" and not scene.static.differentiable
+            and scene.static.has_bvh and scene.static.num_triangles > 0
+            and n_rays >= SORT_MIN_RAYS)
+
+
+def _bounce_loop(scene: Scene, state: tuple, step, max_depth: int) -> tuple:
+    """Drive ``step(depth, state) -> state`` for up to ``max_depth``
+    bounces; the state's last element is the alive mask, and the loop stops
+    once no lane is alive (one host sync per bounce).
+
+    With ``scene.static.differentiable`` each bounce runs under
+    ``torch.utils.checkpoint``: reverse mode then keeps only the per-bounce
+    state (a few [N]-vectors) and recomputes one bounce at a time, O(1)
+    activation memory in depth (the JAX package's ``jax.checkpoint`` in its
+    fixed-trip ``fori_loop``).  The recompute is exact: every draw comes from
+    threefry keys, none from torch's RNG.  After every lane has died, the
+    JAX package's fixed-trip bounces change nothing, so stopping early gives
+    the same values and gradients."""
+    for depth in range(max_depth):
+        if not bool(state[-1].any()):       # one host sync per bounce
+            break
+        if scene.static.differentiable:
+            state = checkpoint(step, depth, state, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            state = step(depth, state)
+    return state
 
 
 # ------------------------------------------------------------- integrators
@@ -322,18 +352,10 @@ def integrate_rrnee(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor, *,
             raise ValueError("the coherence sort needs a triangle soup")
         sort_lo, sort_inv = _scene_sort_bounds(scene)
 
-    # per-lane state; permuted every bounce by the coherence sort, `orig`
-    # carries each lane's original index for the un-permute at the end
-    orig = torch.arange(n_rays, device=dev)
-    t_min = torch.full((n_rays,), RAY_EPSILON, dtype=torch.float32, device=dev)
-    throughput = torch.ones((n_rays, 3), dtype=torch.float32, device=dev)
-    L = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
-    alive = torch.ones(n_rays, dtype=torch.bool, device=dev)
     neg = -INF_DISTANCE
 
-    for depth in range(max_depth):
-        if not bool(alive.any()):       # one host sync per bounce
-            break
+    def step(depth: int, state: tuple) -> tuple:
+        orig, ro, rd, t_min, throughput, L, alive = state
         dkeys = fold_in(keys[orig], depth)
         # sites 0..3 (material layer, lobe, 2D; Russian roulette): one pass
         u_mat = uniform_sites(dkeys, (SITE_MAT_LAYER, SITE_MAT_LOBE,
@@ -379,18 +401,24 @@ def integrate_rrnee(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor, *,
         continues = alive & hit.valid & ms_ok & ~(rr_active & ~rr_continue)
 
         c3 = continues[:, None]
-        ro = torch.where(c3, p, ro)
-        rd = torch.where(c3, wi, rd)
-        t_min = torch.where(continues, get_ray_offset(cosine), t_min)
-        throughput = torch.where(c3, new_throughput, throughput)
-        alive = continues
+        out = (orig, torch.where(c3, p, ro), torch.where(c3, wi, rd),
+               torch.where(continues, get_ray_offset(cosine), t_min),
+               torch.where(c3, new_throughput, throughput), L, continues)
         if sort:
             # regroup surviving rays (pure permutation of per-lane state —
             # the image is unchanged; see _coherence_order)
-            perm = _coherence_order(alive, ro, rd, sort_lo, sort_inv)
-            orig, ro, rd, t_min, throughput, L, alive = (
-                a[perm] for a in (orig, ro, rd, t_min, throughput, L, alive))
+            perm = _coherence_order(continues, out[1], out[2], sort_lo, sort_inv)
+            out = tuple(a[perm] for a in out)
+        return out
 
+    # per-lane state; permuted every bounce by the coherence sort, `orig`
+    # carries each lane's original index for the un-permute at the end
+    state = (torch.arange(n_rays, device=dev), ro, rd,
+             torch.full((n_rays,), RAY_EPSILON, dtype=torch.float32, device=dev),
+             torch.ones((n_rays, 3), dtype=torch.float32, device=dev),
+             torch.zeros((n_rays, 3), dtype=torch.float32, device=dev),
+             torch.ones(n_rays, dtype=torch.bool, device=dev))
+    orig, _, _, _, _, L, _ = _bounce_loop(scene, state, step, max_depth)
     out = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
     out[orig] = L
     return out
@@ -432,18 +460,11 @@ def _integrate_bruteforce_common(scene: Scene, ro: Tensor, rd: Tensor,
     neg = -INF_DISTANCE
     sites = (SITE_MAT_LAYER, SITE_MAT_LOBE, SITE_MAT_2D) + (
         (SITE_RR,) if rr != "none" else ())
-    if rr == "dynamic":
-        mean, count = (x.clone() for x in stats)
-        nd = mean.shape[1]
+    nd = stats[0].shape[1] if rr == "dynamic" else 0
 
-    t_min = torch.full((n_rays,), RAY_EPSILON, dtype=torch.float32, device=dev)
-    throughput = torch.ones((n_rays, 3), dtype=torch.float32, device=dev)
-    L = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
-    alive = torch.ones(n_rays, dtype=torch.bool, device=dev)
-
-    for depth in range(max_depth):
-        if not bool(alive.any()):       # one host sync per bounce
-            break
+    def step(depth: int, state: tuple) -> tuple:
+        # ``stats`` is (mean, count) with rr="dynamic", else empty
+        ro, rd, t_min, throughput, L, *stats, alive = state
         u = uniform_sites(fold_in(keys, depth), sites)
         lhit, ldist, lL = scene_intersect_lights(
             scene, ro, rd, t_min, torch.where(alive, INF_DISTANCE, neg))
@@ -471,6 +492,7 @@ def _integrate_bruteforce_common(scene: Scene, ro: Tensor, rd: Tensor,
         col = depth - rr_depth                      # this depth's bucket
         in_bucket = rr == "dynamic" and 0 <= col < nd
         if in_bucket:
+            mean, count = stats
             bucket_mean, bucket_n = mean[:, col], count[:, col]
             lum = relative_luminance(new_throughput)
             rr_active = (bucket_n >= RR_MIN_SAMPLES) & (lum < bucket_mean)
@@ -482,26 +504,34 @@ def _integrate_bruteforce_common(scene: Scene, ro: Tensor, rd: Tensor,
                                          new_throughput / q[:, None], new_throughput)
             continues = continues & ~(rr_active & ~rr_continue)
         if in_bucket:
-            # survivors push their post-reweight luminance into the bucket
+            # survivors push their post-reweight luminance into the bucket;
+            # out of place (a one-column select), so that the graph may
+            # still read the old statistics
             n_new = bucket_n + 1
             mean_new = bucket_mean + (relative_luminance(new_throughput)
                                       - bucket_mean) / n_new.to(torch.float32)
-            mean[:, col] = torch.where(continues, mean_new, bucket_mean)
-            count[:, col] = torch.where(continues, n_new, bucket_n)
+            sel = continues[:, None] & (torch.arange(nd, device=dev) == col)
+            stats = [torch.where(sel, mean_new[:, None], mean),
+                     torch.where(sel, n_new[:, None], count)]
 
         L = L + torch.where((alive & ~hit.valid & lhit)[:, None], throughput * lL, 0.0)
 
         c3 = continues[:, None]
-        ro = torch.where(c3, p, ro)
-        rd = torch.where(c3, wi, rd)
         if offset_tmin:
             t_min = torch.where(continues, get_ray_offset(torch.abs(cosine_signed)), t_min)
-        throughput = torch.where(c3, new_throughput, throughput)
-        alive = continues
+        return (torch.where(c3, p, ro), torch.where(c3, wi, rd), t_min,
+                torch.where(c3, new_throughput, throughput), L, *stats, continues)
 
+    state = (ro, rd,
+             torch.full((n_rays,), RAY_EPSILON, dtype=torch.float32, device=dev),
+             torch.ones((n_rays, 3), dtype=torch.float32, device=dev),
+             torch.zeros((n_rays, 3), dtype=torch.float32, device=dev),
+             *(stats if rr == "dynamic" else ()),
+             torch.ones(n_rays, dtype=torch.bool, device=dev))
+    state = _bounce_loop(scene, state, step, max_depth)
     if rr == "dynamic":
-        return L, (mean, count)
-    return L
+        return state[4], (state[5], state[6])
+    return state[4]
 
 
 def integrate_brute_force(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor,
@@ -571,12 +601,9 @@ def integrate_whitted(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor, *,
     dev = ro.device
     neg = -INF_DISTANCE
     t_min = torch.full((n_rays,), RAY_EPSILON, dtype=torch.float32, device=dev)
-    L = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
-    alive = torch.ones(n_rays, dtype=torch.bool, device=dev)
 
-    for depth in range(scene.static.max_depth):
-        if not bool(alive.any()):       # one host sync per bounce
-            break
+    def step(depth: int, state: tuple) -> tuple:
+        ro, rd, L, alive = state
         dkeys = fold_in(keys, depth)
         lhit, ldist, lL = scene_intersect_lights(
             scene, ro, rd, t_min, torch.where(alive, INF_DISTANCE, neg))
@@ -598,10 +625,12 @@ def integrate_whitted(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor, *,
                              u_mat[1, :, 0], u_mat[2])
         continues = dmask & ((ms.properties & PROP_SPECULAR) != 0)
         c3 = continues[:, None]
-        ro = torch.where(c3, p, ro)
-        rd = torch.where(c3, onb_to_world(onb, ms.wi), rd)
-        alive = continues
-    return L
+        return (torch.where(c3, p, ro),
+                torch.where(c3, onb_to_world(onb, ms.wi), rd), L, continues)
+
+    state = (ro, rd, torch.zeros((n_rays, 3), dtype=torch.float32, device=dev),
+             torch.ones(n_rays, dtype=torch.bool, device=dev))
+    return _bounce_loop(scene, state, step, scene.static.max_depth)[2]
 
 
 def integrate_mandelbrot(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor, *,

@@ -7,9 +7,8 @@ loaded + world-baked), lights become light tables, and the BVH is built over
 the triangle soup.  Everything is assembled in numpy on the host and moved
 to ``device`` once at the end (an image-based light's sampling tables with
 it, built once per scene); the materials' rho table is built there, once per
-scene.
-
-Not in this slice: the persistent geometry cache.
+scene.  The mesh bake and BVH build are served from the persistent geometry
+cache when they can be (``scene/cache.py``).
 """
 
 from __future__ import annotations
@@ -152,14 +151,33 @@ def _build_env(light, base_dir: str) -> tuple[int, EnvLightArrays]:
 def _build_geometry(mesh_jobs, use_bvh: bool | None) -> dict:
     """Mesh files → reordered triangle tables + packed BVH records (the
     expensive host-side step: PLY/STL parse, world bake, wide-BVH build,
-    record packing).
+    record packing), served from the geometry cache when it holds them.
 
     Returns dict(records|None, v0, v1, v2, n0, n1, n2, material_id).
     """
+    from . import cache
+
+    cache.LAST_HIT = None
     if not mesh_jobs:
         z = np.zeros((0, 3), np.float32)
         return dict(records=None, v0=z, v1=z, v2=z, n0=z, n1=z, n2=z,
                     material_id=np.zeros((0,), np.int32))
+
+    base_dir = os.path.dirname(os.path.abspath(mesh_jobs[0][0]))
+    try:
+        key = cache.geometry_cache_key(mesh_jobs)
+    except OSError:
+        key = None
+    # bake-only loads (use_bvh=False) cache the baked triangle tables under
+    # a key of their own: never served to a load that wants a BVH
+    if use_bvh is False and key is not None:
+        key = key + "_bake"
+    if key is not None:
+        cached = cache.load_geometry(base_dir, key)
+        if cached is not None:
+            if cached["records"].size == 0:
+                cached["records"] = None
+            return cached
 
     tri_v, tri_n, tri_m = [], [], []
     for path, linear, translation, mid in mesh_jobs:
@@ -193,8 +211,13 @@ def _build_geometry(mesh_jobs, use_bvh: bool | None) -> dict:
         n0, n1, n2 = n0[order], n1[order], n2[order]
         tm = tm[order]
 
-    return dict(records=records, v0=v0, v1=v1, v2=v2, n0=n0, n1=n1, n2=n2,
-                material_id=tm)
+    out = dict(records=records, v0=v0, v1=v1, v2=v2, n0=n0, n1=n1, n2=n2,
+               material_id=tm)
+    if key is not None and (records is not None or use_bvh is False):
+        cache.save_geometry(base_dir, key, dict(
+            out, records=np.zeros((0, 0), np.float32) if records is None
+            else records))
+    return out
 
 
 def finalize_scene(scene: Scene, device) -> Scene:

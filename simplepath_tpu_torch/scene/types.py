@@ -177,7 +177,8 @@ class MaterialArrays:
     layer.  ``rho_table`` is the microfacet lobe's directional-albedo table
     (``render.materials.build_rho_tables``): it depends on the materials
     only, so the port builds it ONCE per scene (the JAX package rebuilds it
-    per ``render_rays`` call); None means "not built yet".
+    per ``render_rays`` call), and ``diff.grad.set_params`` rebuilds it from
+    new materials, in the autograd graph; None means "not built yet".
     """
     base_type: Any      # [M] int32
     albedo: Any         # [M,3] lambertian diffuse color
@@ -244,8 +245,8 @@ class SceneStatic:
     num_materials: int
     has_bvh: bool
     output_file_name: str = "image.pfm"
-    # carried for parity with the JAX package's config; the port's bounce
-    # loop is an early-exit Python loop and has no differentiable mode yet
+    # reverse-mode rendering (diff/grad.py): every bounce runs under
+    # torch.utils.checkpoint, and the coherence sort is off
     differentiable: bool = False
     # geometry sharding is a later slice: must be 0
     geom_shards: int = 0
