@@ -42,10 +42,35 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            kernels equals the one through their plain versions (rtol 1e-4,
            atol 1e-6), and matches central differences (4 spp) on the
            largest albedo and light-radiance gradients
+  geom     the bench scene as a BVH forest of 4 shards on the card
+           (parallel/geom_shard.py: both kernels once a shard and query,
+           then the combine), the flagship full frame at --spp samples
+           against the render phase's image (max abs diff < 1e-4), launches,
+           peak memory, forest build cold and warm through the cache; the
+           forest's kernels vs plain versions at 128x128; the same frame
+           through one BVH and through the forest, timed in turns (A B B A);
+           then a lucy-class terrain of 2,101,250 triangles
+           (io/meshgen.displaced_grid(1026), lucy_bench.sp's camera,
+           materials, plane and light, cut from 1350x2000 to 1024x1024) at
+           1 spp, one BVH and a forest of 4, builds cold and warm, held
+           together at the lucy gate (< 1 % of pixels off by > 1e-3, means
+           within 1 %)
+  ranks    two processes on the one card, joined over gloo (NCCL takes one
+           GPU a rank; gloo stages the CUDA tensors of a collective through
+           the host): the bench frame at 1 spp by render_image_multihost,
+           each rank's frame equal to the one-process frame (timed after the
+           same warm-up, in this process before and after the ranks, and in
+           a fresh process as a world of one), launches per rank; two
+           train_step_multihost calls on the train phase's 65,536 pixels
+           (the albedo), the first's loss and albedo against the
+           one-process step (rtol 1e-5 / atol 1e-5)
 
-Each phase's seconds follow it on a line of their own.  Any failed phase
-raises (non-zero exit).  Without a CUDA device the script exits non-zero
-before printing any result.  The last line of the output is
+Each phase's seconds follow it on a line of their own, with what the host
+took to enqueue one tiny kernel, and the live Python objects, just before
+the phase.  A failed phase ends
+the run: its traceback goes to stderr, the last line is {"ok": false, ...}
+and the exit code is 1.  Without a CUDA device the script exits non-zero
+before printing any result.  The last line of a run that passes is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -53,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -69,7 +95,7 @@ SCENE = os.path.join(HERE, "scenes", "bunny_bench.sp")
 OUT_DIR = os.path.join(HERE, "chip_smoke_out")
 IBL_TEST_SCENE = os.path.join(HERE, "tests", "scenes", "g_ibl_rrnee.sp")
 PHASES = ("device", "build", "kernels", "render", "paths", "parity", "cli",
-          "train")
+          "train", "geom", "ranks")
 # the traced integrators besides the flagship, and whether each has NEE
 # (next-event estimation: shadow rays through sp_anyhit)
 PATHS = {"direct_lighting": True, "brute_force": False,
@@ -100,6 +126,21 @@ TPU_KERNEL = {"closest": "simplepath_tpu/render/pallas_traverse.py:466",
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def host_launch_us(n: int = 2000) -> float:
+    """Host microseconds to enqueue one tiny kernel, the card idle: what a
+    PyTorch op costs the launch-bound bounce loop at this point of the
+    run."""
+    x = torch.zeros(1, device="cuda")
+    x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def nvidia_smi_line() -> str:
@@ -382,6 +423,7 @@ def phase_render(scene, spp: int, load_s: float, builder: str | None,
     from simplepath_tpu_torch.io.pfm import write_image
     from simplepath_tpu_torch.parallel.mesh import render_image_sharded
     from simplepath_tpu_torch.render import cuda_traverse as ct
+    from simplepath_tpu_torch.render.materials import build_rho_tables
 
     key = prng_key(0)
     torch.cuda.synchronize()
@@ -409,6 +451,7 @@ def phase_render(scene, spp: int, load_s: float, builder: str | None,
     out_path = os.path.join(OUT_DIR, st.output_file_name)
     write_image(out_path, img.cpu().numpy())
     paths = st.width * st.height * spp
+    peak = torch.cuda.max_memory_allocated()
     emit("render", scene=os.path.relpath(SCENE, HERE), width=st.width,
          height=st.height, max_depth=st.max_depth, spp=spp,
          triangles=st.num_triangles, record_rows=int(scene.bvh.records.shape[0]),
@@ -417,8 +460,10 @@ def phase_render(scene, spp: int, load_s: float, builder: str | None,
          bvh_builder=None if geometry_cache else builder, render_s=render_s,
          camera_paths_per_s=paths / render_s, launches=launches,
          image_mean=mean, output=os.path.relpath(out_path, HERE),
-         max_memory_allocated=torch.cuda.max_memory_allocated())
-    return launches
+         max_memory_allocated=peak,
+         rho_table_launches_per_render_rays=cuda_launches(
+             lambda: build_rho_tables(scene.materials)))
+    return launches, img
 
 
 def write_ibl_map(path: str, seed: int = 0) -> None:
@@ -485,17 +530,24 @@ def check_launches(path: str, launches: dict, nee: bool) -> None:
 
 
 def render_path(path: str, scene, spp: int = 1) -> dict:
-    """One full frame through render_image_sharded, the launch counts set
-    to 0 just before it and read just after."""
+    """One full frame through render_image_sharded (see render_frame)."""
+    return render_frame(path, scene, spp)[0]
+
+
+def render_frame(path: str, scene, spp: int = 1, render=None) -> tuple:
+    """One full frame through ``render`` (default render_image_sharded),
+    the launch counts set to 0 just before it and read just after →
+    (summary, image)."""
     from simplepath_tpu_torch.core.rng import prng_key
     from simplepath_tpu_torch.parallel.mesh import render_image_sharded
     from simplepath_tpu_torch.render import cuda_traverse as ct
 
+    render = render or render_image_sharded
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ct.reset_launch_counts()
     t0 = time.time()
-    img = render_image_sharded(scene, spp, prng_key(0))
+    img = render(scene, spp, prng_key(0))
     torch.cuda.synchronize()
     render_s = time.time() - t0
     launches = dict(ct.launch_counts)
@@ -512,22 +564,29 @@ def render_path(path: str, scene, spp: int = 1) -> dict:
                 render_s=render_s,
                 camera_paths_per_s=st.width * st.height * spp / render_s,
                 launches=launches, image_mean=mean,
-                max_memory_allocated=torch.cuda.max_memory_allocated())
+                max_memory_allocated=torch.cuda.max_memory_allocated()), img
+
+
+def cuda_launches(fn) -> int:
+    """CUDA launches of one call of ``fn`` (after one warm-up call), counted
+    with the profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def ibl_light_sample_launches(scene) -> int:
     """CUDA launches of one batched IBL light sample (the two dependent
-    binary searches), counted with the profiler on one 65,536-lane call."""
+    binary searches) on 65,536 lanes."""
     from simplepath_tpu_torch.render.lights import env_light_sample
     u = torch.rand((65536, 2), device=scene.device)
-    env_light_sample(scene.env, scene.static.env_kind, u)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        env_light_sample(scene.env, scene.static.env_kind, u)
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return cuda_launches(
+        lambda: env_light_sample(scene.env, scene.static.env_kind, u))
 
 
 def phase_paths(scene, ibl) -> dict:
@@ -1030,6 +1089,344 @@ def phase_train(scene) -> dict:
     return by_path
 
 
+GEOM_SHARDS = 4
+# displaced_grid(n) has 2 (n - 1)^2 triangles: 2,101,250 here, a record
+# table ~6.4 times the bench scene's, over twice the card's 50 MB L2
+TERRAIN_GRID = 1026
+TERRAIN_SIDE = 1024         # lucy_bench.sp's 1350x2000, cut for time
+LUCY_SCENE = os.path.join(HERE, "scenes", "lucy_bench.sp")
+
+
+def held_against(img, ref) -> dict:
+    """How far a frame is from a reference frame, per pixel (max over the
+    channels)."""
+    diff = (img - ref).abs().amax(dim=2)
+    return dict(max_abs_diff=float(diff.max()),
+                pixels_over_1e4=int((diff > 1e-4).sum()),
+                pixels_over_1e3=int((diff > 1e-3).sum()),
+                share_over_1e3=float((diff > 1e-3).float().mean()),
+                mean=float(img.mean()), ref_mean=float(ref.mean()))
+
+
+def forest_builds(scene, mesh, cache_dir: str) -> tuple:
+    """The forest built with an empty cache, then the same call served by
+    the cache → (forest, cold seconds, warm seconds)."""
+    import shutil
+
+    from simplepath_tpu_torch.parallel.geom_shard import shard_scene_geometry
+    from simplepath_tpu_torch.scene import cache
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    os.makedirs(cache_dir)
+    t0 = time.time()
+    shard_scene_geometry(scene, mesh, cache_dir=cache_dir)
+    torch.cuda.synchronize()
+    cold = time.time() - t0
+    t0 = time.time()
+    forest = shard_scene_geometry(scene, mesh, cache_dir=cache_dir)
+    torch.cuda.synchronize()
+    warm = time.time() - t0
+    if cache.LAST_HIT is None:
+        raise AssertionError("the second forest build missed the cache")
+    return forest, cold, warm
+
+
+def terrain_text(ply: str) -> str:
+    """lucy_bench.sp with the terrain of ``ply`` and a 1024x1024 film."""
+    with open(LUCY_SCENE) as f:
+        text = f.read()
+    for old, new in (('"terrain_28m.ply"', f'"{ply}"'),
+                     ("width: 1350", f"width: {TERRAIN_SIDE}"),
+                     ("height: 2000", f"height: {TERRAIN_SIDE}")):
+        if old not in text:
+            raise AssertionError(f"{LUCY_SCENE} has no {old}")
+        text = text.replace(old, new)
+    return text
+
+
+def phase_geom(scene, spp: int, ref) -> dict:
+    """The bench scene as a forest of GEOM_SHARDS on the card: the full
+    frame against the one-BVH frame ``ref`` (max abs diff < 1e-4), the
+    forest's kernels against their plain versions at 128x128, then the
+    lucy-class terrain, one BVH and a forest, at the lucy gate."""
+    import shutil
+
+    from simplepath_tpu_torch import build_scene
+    from simplepath_tpu_torch.io.meshgen import displaced_grid, write_ply
+    from simplepath_tpu_torch.parallel.geom_shard import (
+        make_geom_mesh, render_image_geom_sharded)
+    from simplepath_tpu_torch.scene import cache
+    from simplepath_tpu_torch.scene.parser import parse_sp
+
+    by_path = {}
+    mesh = make_geom_mesh(GEOM_SHARDS)
+    forest, cold, warm = forest_builds(scene, mesh,
+                                       os.path.join(OUT_DIR, "forest_cache"))
+    res, img = render_frame("geom_bench", forest, spp,
+                            render_image_geom_sharded)
+    check_launches("geom_bench", res["launches"], nee=True)
+    gate = held_against(img, ref)
+    by_path["geom_bench"] = res["launches"]
+    emit("geom", **res, shards=GEOM_SHARDS,
+         record_rows=list(forest.bvh.records.shape[:2]),
+         forest_build_cold_s=cold, forest_build_warm_s=warm,
+         against_one_bvh=gate)
+    if not gate["max_abs_diff"] < 1e-4:
+        raise AssertionError(f"the forest's bench frame departs from the "
+                             f"one-BVH frame: {gate}")
+    parity_case("geom_bench", forest)
+
+    # the same frame through one BVH and through the forest in turns
+    # (A B B A), both warm: the forest's frame above and the render phase's
+    turns = []
+    for path, sc, render in (("one_bvh", scene, None),
+                             ("forest", forest, render_image_geom_sharded),
+                             ("forest", forest, render_image_geom_sharded),
+                             ("one_bvh", scene, None)):
+        r, _ = render_frame(path, sc, spp, render)
+        turns.append((path, r["render_s"]))
+    one = [s for p, s in turns if p == "one_bvh"]
+    four = [s for p, s in turns if p == "forest"]
+    emit("geom", path="geom_bench_turns", spp=spp, order="A B B A",
+         seconds=turns, one_bvh_s=one, forest_s=four,
+         forest_over_one_bvh=sum(four) / sum(one))
+
+    # the lucy-class terrain: a PLY written from a seed, built cold (no
+    # cache entry beside it) and warm, as one BVH and as a forest
+    tdir = os.path.join(OUT_DIR, "terrain")
+    shutil.rmtree(tdir, ignore_errors=True)
+    os.makedirs(tdir)
+    t0 = time.time()
+    v, f = displaced_grid(TERRAIN_GRID)
+    ply = os.path.join(tdir, "terrain.ply")
+    write_ply(ply, v, f)
+    mesh_s = time.time() - t0
+    text = terrain_text(ply)
+    builds = {}
+    for load in ("cold", "warm"):
+        t0 = time.time()
+        terrain = build_scene(parse_sp(text, base_dir=tdir))
+        torch.cuda.synchronize()
+        builds[load] = time.time() - t0
+        if (cache.LAST_HIT is None) != (load == "cold"):
+            raise AssertionError(f"the {load} terrain build "
+                                 f"{'hit' if load == 'cold' else 'missed'} "
+                                 "the geometry cache")
+    t_forest, t_cold, t_warm = forest_builds(
+        terrain, mesh, os.path.join(tdir, "forest_cache"))
+    frames = {}
+    for path, sc, render in (
+            ("terrain_one_bvh", terrain, None),
+            ("geom_terrain", t_forest, render_image_geom_sharded)):
+        res, frames[path] = render_frame(path, sc, 1, render)
+        check_launches(path, res["launches"], nee=True)
+        by_path[path] = res["launches"]
+        rows = sc.bvh.records.shape[:-1]
+        emit("geom", **res, triangles=sc.static.num_triangles,
+             record_rows=list(rows),
+             record_bytes=int(np.prod(list(rows))) * 128 * 4)
+    gate = held_against(frames["geom_terrain"], frames["terrain_one_bvh"])
+    emit("geom", path="geom_terrain", against_one_bvh=gate,
+         mesh_write_s=mesh_s, scene_build_cold_s=builds["cold"],
+         scene_build_warm_s=builds["warm"], forest_build_cold_s=t_cold,
+         forest_build_warm_s=t_warm, width=TERRAIN_SIDE, height=TERRAIN_SIDE,
+         cut_from=[1350, 2000])
+    if not (gate["share_over_1e3"] < 0.01
+            and abs(gate["mean"] - gate["ref_mean"]) < 0.01 * gate["ref_mean"]):
+        raise AssertionError(f"the terrain forest fails the lucy gate: {gate}")
+    return by_path
+
+
+RANKS = 2
+RANK_TIMEOUT_S = 600
+
+
+def run_rank(rank: int, world: int, out: str) -> None:
+    """One rank of the ranks phase (``chip_smoke.py --rank R``): joins the
+    others over gloo on this card, renders the bench frame at 1 spp and
+    takes one train step, and saves what it computed in ``out``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import simplepath_tpu_torch as sp
+    from simplepath_tpu_torch.core.rng import prng_key
+    from simplepath_tpu_torch.diff import grad as G
+    from simplepath_tpu_torch.parallel import (init_distributed,
+                                               make_ray_mesh,
+                                               render_image_multihost,
+                                               train_step_multihost,
+                                               warmup_render)
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+
+    init_distributed("file://" + os.path.join(out, "rendezvous"), world, rank,
+                     backend="gloo",
+                     timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        scene = sp.load_scene(SCENE)
+        warm_s = warmup_render(scene, 1, make_ray_mesh())
+        res = {"rank": rank, "world": world, "warmup_s": warm_s}
+        torch.cuda.synchronize()
+        ct.reset_launch_counts()
+        t0 = time.time()
+        img = render_image_multihost(scene, 1, prng_key(0))
+        torch.cuda.synchronize()
+        res.update(render_s=time.time() - t0, launches=dict(ct.launch_counts))
+
+        xs, ys = bench_batch(scene)
+        target = torch.load(os.path.join(out, "target.pt")).to(scene.device)
+        p0 = G.get_params(scene)
+        p0 = dict(p0, mat_albedo=torch.full_like(p0["mat_albedo"], 0.5))
+        # two steps: the first meets the other rank at the coordination
+        # barrier and carries the first-use costs; the second does neither
+        steps, params = [], p0
+        for _ in range(2):
+            ct.reset_launch_counts()
+            t0 = time.time()
+            params, loss = train_step_multihost(
+                scene, params, target, xs, ys, TRAIN_SPP, prng_key(7),
+                lr=TRAIN_LR, leaves=TRAIN_LEAVES)
+            torch.cuda.synchronize()
+            steps.append((time.time() - t0, dict(ct.launch_counts), loss,
+                          params))
+        new, loss = steps[0][3], steps[0][2]
+        res.update(train_s=[x[0] for x in steps], train_launches=steps[0][1],
+                   loss=loss, loss_step2=steps[1][2],
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        np.save(os.path.join(out, f"img_{rank}.npy"), img.cpu().numpy())
+        np.save(os.path.join(out, f"albedo_{rank}.npy"),
+                new["mat_albedo"].cpu().numpy())
+        with open(os.path.join(out, f"rank_{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(out: str, world: int) -> None:
+    """Start ``world`` ranks of this script and wait for them; a rank that
+    fails, or runs past RANK_TIMEOUT_S, ends them all and raises with the
+    failing ranks' output."""
+    logs = [open(os.path.join(out, f"rank_{r}.log"), "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--world", str(world), "--rank-out", out],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.time() + RANK_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.returncode not in (None, 0) for p in procs)
+                    or time.time() > deadline):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    tails = []
+    for r, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        if p.returncode != 0:
+            tails.append(f"--- rank {r} (exit {p.returncode}):\n"
+                         + f.read()[-3000:])
+        f.close()
+    if tails:
+        raise AssertionError("a rank failed:\n" + "\n".join(tails))
+
+
+def phase_ranks(scene) -> dict:
+    """RANKS processes on this one card over gloo: each rank's 1-spp bench
+    frame equals the one-process frame, and one train step matches the
+    one-process step.  The one-process frame is also timed in a fresh
+    process, a world of one running the ranks' own job."""
+    import shutil
+
+    from simplepath_tpu_torch.core.rng import prng_key
+    from simplepath_tpu_torch.diff import grad as G
+    from simplepath_tpu_torch.parallel.mesh import (render_image_sharded,
+                                                    warmup_render)
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+    from simplepath_tpu_torch.render.film import render_rays
+
+    out = os.path.join(OUT_DIR, "ranks")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    key = prng_key(7)
+    xs, ys = bench_batch(scene)
+    dscene = dataclasses.replace(scene, static=dataclasses.replace(
+        scene.static, differentiable=True))
+    with torch.no_grad():
+        target = render_rays(dscene, xs, ys, TRAIN_SPP, key)
+    torch.save(target.cpu(), os.path.join(out, "target.pt"))
+    ct.build_library()          # built here, before the ranks load it
+
+    def one_process():
+        """The 1-spp frame in this process, timed as a rank times its own:
+        after the same warm-up."""
+        warmup_render(scene, 1)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = render_image_sharded(scene, 1, prng_key(0))
+        torch.cuda.synchronize()
+        return time.time() - t0, img.cpu().numpy()
+
+    one_s = [one_process()[0]]
+    # the same job in a fresh process of its own, a world of one: the
+    # one-process frame timed as a rank's is, free of this process's state
+    lone = os.path.join(out, "world1")
+    os.makedirs(lone)
+    shutil.copy(os.path.join(out, "target.pt"), lone)
+    spawn_ranks(lone, 1)
+    with open(os.path.join(lone, "rank_0.json")) as f:
+        fresh = json.load(f)
+    fresh_img = np.load(os.path.join(lone, "img_0.npy"))
+    t0 = time.time()
+    spawn_ranks(out, RANKS)
+    ranks_s = time.time() - t0
+    s, one = one_process()
+    one_s.append(s)
+    if not np.array_equal(fresh_img, one):
+        raise AssertionError("the world-of-one rank's frame differs from "
+                             "this process's")
+    p0 = G.get_params(scene)
+    p0 = dict(p0, mat_albedo=torch.full_like(p0["mat_albedo"], 0.5))
+    step = G.make_train_step(scene, TRAIN_SPP, lr=TRAIN_LR,
+                             leaves=TRAIN_LEAVES)
+    new, loss = step(p0, target, xs, ys, key)
+    albedo = new["mat_albedo"].cpu().numpy()
+    by_path = {}
+    for r in range(RANKS):
+        with open(os.path.join(out, f"rank_{r}.json")) as f:
+            res = json.load(f)
+        img = np.load(os.path.join(out, f"img_{r}.npy"))
+        a = np.load(os.path.join(out, f"albedo_{r}.npy"))
+        res.update(one_process_render_s=one_s,
+                   fresh_one_process_render_s=fresh["render_s"],
+                   fresh_one_process_train_s=fresh["train_s"],
+                   frame_equals_one_process=bool(np.array_equal(img, one)),
+                   frame_max_abs_diff=float(np.abs(img - one).max()),
+                   one_process_loss=float(loss),
+                   loss_abs_diff=abs(res["loss"] - float(loss)),
+                   albedo_max_abs_diff=float(np.abs(a - albedo).max()))
+        emit("ranks", backend="gloo",
+             why_gloo="NCCL takes one GPU a rank; the two ranks share this "
+                      "card, and gloo stages their collectives through the "
+                      "host", ranks_wall_s=ranks_s, **res)
+        by_path[f"ranks_rank{r}"] = res["launches"]
+        by_path[f"ranks_train_rank{r}"] = res["train_launches"]
+        if not res["frame_equals_one_process"]:
+            raise AssertionError(f"rank {r}'s frame differs from the "
+                                 "one-process frame")
+        if not (res["loss_abs_diff"] <= 1e-5 * abs(float(loss))
+                and res["albedo_max_abs_diff"] <= 1e-5):
+            raise AssertionError(f"rank {r}'s train step departs from the "
+                                 f"one-process step: {res}")
+        if min(res["launches"].values()) <= 0 or \
+                min(res["train_launches"].values()) <= 0:
+            raise AssertionError(f"rank {r} launched no kernel: {res}")
+    return by_path
+
+
 def kernels_line(results: dict, launches: dict, by_path: dict) -> dict:
     """The summary object: one entry per kernel, times from the N=65,536
     primary-ray case (the main path's chunk size), every ray set under
@@ -1067,6 +1464,10 @@ def main() -> int:
                     help="samples per pixel of the full-frame render")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=RANKS,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rank-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1078,13 +1479,33 @@ def main() -> int:
               "false); this script runs on the GPU only", file=sys.stderr)
         return 1
 
+    if args.rank is not None:               # one rank of the ranks phase
+        run_rank(args.rank, args.world, args.rank_out)
+        return 0
+    progress = {"phase": "setup"}
+    try:
+        return run(args, phases, progress)
+    except Exception:
+        import traceback
+        traceback.print_exc()
+        print(json.dumps({"ok": False, "failed_phase": progress["phase"]}),
+              flush=True)
+        return 1
+
+
+def run(args, phases, progress: dict) -> int:
+    """Every phase asked for, in order; ``progress["phase"]`` names the one
+    running."""
     import simplepath_tpu_torch as sp
     from simplepath_tpu_torch.scene import bvh, cache
 
     def timed(phase, fn, *args):
+        progress["phase"] = phase
+        before = dict(launch_us_before=host_launch_us(),
+                      python_objects_before=len(gc.get_objects()))
         t0 = time.time()
         out = fn(*args)
-        emit("seconds", of=phase, s=time.time() - t0)
+        emit("seconds", of=phase, s=time.time() - t0, **before)
         return out
 
     info = timed("device", phase_device)
@@ -1103,8 +1524,9 @@ def main() -> int:
         ibl = timed("ibl_scene", ibl_bench_scene)
     if "kernels" in phases:
         results = timed("kernels", phase_kernels, scene)
+    render_img = None
     if "render" in phases:
-        by_path["iterative_rrnee"] = timed(
+        by_path["iterative_rrnee"], render_img = timed(
             "render", phase_render, scene, args.spp, load_s, bvh.LAST_BUILDER,
             geometry_cache)
     if "paths" in phases:
@@ -1115,6 +1537,15 @@ def main() -> int:
         timed("cli", phase_cli)
     if "train" in phases:
         by_path["train"] = timed("train", phase_train, scene)
+    if "geom" in phases:
+        if render_img is None:
+            from simplepath_tpu_torch.core.rng import prng_key
+            from simplepath_tpu_torch.parallel.mesh import render_image_sharded
+            render_img = render_image_sharded(scene, args.spp, prng_key(0))
+        by_path.update(timed("geom", phase_geom, scene, args.spp, render_img))
+        del render_img
+    if "ranks" in phases:
+        by_path.update(timed("ranks", phase_ranks, scene))
 
     if results:
         print(json.dumps(kernels_line(

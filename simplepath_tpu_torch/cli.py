@@ -4,8 +4,8 @@ Counterpart of ``simplepath_tpu/cli.py``, with the same flags:
 
     python -m simplepath_tpu_torch.cli [--samples N] [--integrator NAME]
                                        [--spp-chunk N] [--checkpoint PATH]
-                                       [--platform cpu] [--test]
-                                       <scene.sp | ->
+                                       [--geom-shards N] [--platform cpu]
+                                       [--test] <scene.sp | ->
 
 The render runs on CUDA and the command fails without a CUDA device, unless
 ``--platform`` names another torch device (``--platform cpu`` runs the
@@ -19,7 +19,11 @@ Rendering goes through the chunked path (bounded device memory at any
 resolution).  With ``--spp-chunk`` or ``--checkpoint`` it runs
 progressively in spp-chunk passes — resumable, with a progress bar — and
 sample streams are keyed by absolute sample index, so the result equals an
-uninterrupted render.  ``--profile DIR`` writes a ``torch.profiler`` trace.
+uninterrupted render.  ``--geom-shards N`` builds the BVH as a forest of N
+sub-BVHs on the render device (``parallel/geom_shard.py``; the forest is
+cached beside the scene) and renders through it, progressive and
+checkpointed passes included.  ``--profile DIR`` writes a
+``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -61,7 +65,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-progress", action="store_true",
                     help="disable the progress bar in progressive mode")
     ap.add_argument("--geom-shards", type=int, default=0, metavar="N",
-                    help="shard the BVH across N devices (not ported yet)")
+                    help="build the BVH as a forest of N shards on the "
+                         "render device and render through it")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the render into DIR")
     return ap
@@ -80,11 +85,6 @@ def main(argv=None) -> int:
             tests, "test_torch_*.py")))])
     if args.scene is None:
         ap.error("a scene file (or '-') is required")
-    if args.geom_shards > 1:
-        raise NotImplementedError(
-            "--geom-shards (parallel/geom_shard.py) is ported in a later "
-            "slice of simplepath_tpu_torch")
-
     import numpy as np
     import torch
 
@@ -97,13 +97,15 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.platform)
     t0 = time.time()
+    use_bvh = False if args.geom_shards > 1 else None  # the forest replaces it
     if args.scene == "-":
         scene = build_scene(parse_sp(sys.stdin.read()),
-                            cli_integrator=args.integrator, device=device)
+                            cli_integrator=args.integrator, use_bvh=use_bvh,
+                            device=device)
         out_dir = os.getcwd()
     else:
         scene = load_scene(args.scene, cli_integrator=args.integrator,
-                           device=device)
+                           use_bvh=use_bvh, device=device)
         out_dir = os.path.dirname(os.path.abspath(args.scene))
     t_parse = time.time() - t0
 
@@ -116,7 +118,8 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     with prof:
-        img = _render(args, scene, prng_key(args.seed, device), device)
+        img = _render(ap, args, scene, out_dir, prng_key(args.seed, device),
+                      device)
         img = img.cpu().numpy()         # waits for the device
     t_render = time.time() - t0
     if args.profile:
@@ -137,17 +140,29 @@ def main(argv=None) -> int:
     return 0
 
 
-def _render(args, scene, key, device):
-    """The film: one chunked render, or progressive passes."""
+def _render(ap, args, scene, out_dir, key, device):
+    """The film: one chunked render, or progressive passes; through the
+    forest with ``--geom-shards``."""
     from .parallel.mesh import render_image_sharded
     from .render.film import render_image_progressive
 
+    render_fn = render_image_sharded
+    if args.geom_shards > 1:
+        from .parallel.geom_shard import (make_geom_mesh,
+                                          render_image_geom_sharded,
+                                          shard_scene_geometry)
+        mesh = make_geom_mesh(args.geom_shards)
+        try:
+            scene = shard_scene_geometry(scene, mesh, cache_dir=out_dir)
+        except ValueError as e:
+            ap.error(str(e))
+        render_fn = render_image_geom_sharded
     if args.checkpoint or 0 < args.spp_chunk < args.samples:
         return render_image_progressive(
             scene, args.samples, key, chunk=args.spp_chunk or min(16, args.samples),
             checkpoint_path=args.checkpoint, progress=not args.no_progress,
-            device=device)
-    return render_image_sharded(scene, args.samples, key, device=device)
+            render_fn=render_fn, device=device)
+    return render_fn(scene, args.samples, key, device=device)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,6 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .scene.build import finalize_scene
 from .scene.types import (BVHArrays, CameraArrays, EnvLightArrays,
                           MaterialArrays, PlaneArrays, Scene, SceneStatic,
                           SphereArrays, SphereLightArrays, TriangleArrays)
@@ -53,16 +52,14 @@ def _group(cls, name: str, arrays: dict):
 def scene_from_numpy(static_fields: dict, arrays: dict, device=None) -> Scene:
     """The port's ``Scene`` from the JAX package's scene, handed over as
     ``dataclasses.asdict(scene.static)`` plus its arrays as numpy, keyed by
-    field path.  The materials' rho table is built here, once.  ``device=
-    None`` means CUDA and raises without one."""
+    field path (the rho table excepted: ``render_rays`` builds it).  A
+    geometry-sharded JAX scene (``static.geom_shards`` = D, ``bvh.records``
+    ``[D, M, 128]``) arrives with every shard on this process.
+    ``device=None`` means CUDA and raises without one."""
     device = resolve_device(device)
     static = SceneStatic(**static_fields)
-    if static.geom_shards:
-        raise NotImplementedError(
-            "geometry-sharded scenes are ported in a later slice of "
-            "simplepath_tpu_torch")
     groups = {name: _group(cls, name, arrays) for name, cls in _GROUPS.items()}
-    return finalize_scene(Scene(static=static, **groups), device)
+    return Scene(static=static, **groups).to(device)
 
 
 def params_from_numpy(arrays: dict, device=None) -> dict:

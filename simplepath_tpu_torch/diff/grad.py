@@ -15,10 +15,9 @@ boundaries (silhouettes) and the IBL CDF tables (radiance gradients flow
 through the radiance lookup, not through the sampling distribution).
 
 The parameters are scene tables, not layers, so this is plain functions over
-dicts of tensors.  ``set_params`` rebuilds the materials' rho table from the
-new roughness and ior inside the graph, as the JAX package does on every
-render, so their gradients also flow through the one-sample-MIS lobe
-weights.
+dicts of tensors.  ``render_rays`` builds the materials' rho table from the
+scene's roughness and ior inside the graph on every call, as the JAX package
+does, so their gradients also flow through the one-sample-MIS lobe weights.
 """
 
 from __future__ import annotations
@@ -30,7 +29,6 @@ import torch
 from torch import Tensor
 
 from ..render.film import render_rays
-from ..render.materials import build_rho_tables
 from ..scene.types import Scene
 
 __all__ = ["get_params", "set_params", "render_loss", "render_loss_and_grad",
@@ -59,9 +57,8 @@ def get_params(scene: Scene) -> dict[str, Tensor]:
 
 
 def set_params(scene: Scene, params: dict[str, Tensor]) -> Scene:
-    """Write a parameter dict back into the scene, and rebuild the
-    materials' rho table from it (in the graph when the parameters require
-    grad)."""
+    """Write a parameter dict back into the scene (``render_rays`` builds
+    the rho table from the new materials, in the graph)."""
     materials = dataclasses.replace(
         scene.materials,
         albedo=params["mat_albedo"],
@@ -70,8 +67,6 @@ def set_params(scene: Scene, params: dict[str, Tensor]) -> Scene:
         cc_ior=params["mat_cc_ior"],
         cc_color=params["mat_cc_color"],
     )
-    materials = dataclasses.replace(materials,
-                                    rho_table=build_rho_tables(materials))
     camera = dataclasses.replace(
         scene.camera, eye=params["cam_eye"], to=params["cam_to"],
         up=params["cam_up"], fov=params["cam_fov"])

@@ -8,6 +8,8 @@ adaptive-RR integrator's per-pixel statistics are threaded across that loop.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 from torch import Tensor
@@ -17,8 +19,10 @@ from ..device import resolve_device
 from ..scene.types import Scene
 from .camera import generate_ray
 from .integrators import dynamic_rr_buckets, make_integrator
+from .materials import build_rho_tables
 
-__all__ = ["render_rays", "render_image", "render_image_progressive"]
+__all__ = ["render_rays", "render_image", "render_image_progressive",
+           "with_rho_table"]
 
 _STATEFUL = "brute_force_iterative_dynamic_rr"
 
@@ -27,6 +31,15 @@ def _check_scene_device(scene: Scene, device: torch.device) -> None:
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device} but the render was "
                          f"asked for {device}; move it with scene.to(device)")
+
+
+def with_rho_table(scene: Scene) -> Scene:
+    """The scene with its materials' rho table built from its materials
+    (in the autograd graph when they require grad): what ``render_rays``
+    does on every call, and what a caller of an integrator itself does
+    first, as the JAX package's caller passes the table."""
+    return dataclasses.replace(scene, materials=dataclasses.replace(
+        scene.materials, rho_table=build_rho_tables(scene.materials)))
 
 
 def render_rays(scene: Scene, xs: Tensor, ys: Tensor, spp: int, key: Tensor,
@@ -45,12 +58,18 @@ def render_rays(scene: Scene, xs: Tensor, ys: Tensor, spp: int, key: Tensor,
     sample streams are keyed by the absolute index, so chunked/progressive
     renders compose to exactly the same film as one uninterrupted render.
 
+    The materials' rho table is built anew from ``scene.materials`` on
+    every call, as the JAX package builds it, so a scene whose materials
+    were replaced renders with its own table (and roughness and ior
+    gradients flow through it).
+
     ``device=None`` means CUDA and raises without one; the scene must
     already be there.  Extra keyword arguments go to the integrator
     (``sort=`` for ``iterative_rrnee``).
     """
     device = resolve_device(device)
     _check_scene_device(scene, device)
+    scene = with_rho_table(scene)
     name = integrator or scene.static.integrator
     fn = make_integrator(name)
     xs = xs.to(device=device, dtype=torch.int64)
@@ -97,7 +116,7 @@ def render_image_progressive(scene: Scene, spp: int, key: Tensor,
                              checkpoint_path: str | None = None,
                              checkpoint_every: int = 64,
                              progress: bool = False,
-                             device=None) -> Tensor:
+                             render_fn=None, device=None) -> Tensor:
     """Render in ``chunk``-spp passes with optional checkpoint/resume →
     [H, W, 3] on ``device``.
 
@@ -109,11 +128,16 @@ def render_image_progressive(scene: Scene, spp: int, key: Tensor,
     ``parallel.mesh.render_image_sharded``, so a resumed render equals an
     uninterrupted one bit for bit.  The checkpoint file has the JAX
     package's layout: either package resumes the other's.
+
+    ``render_fn(scene, spp, key, integrator=..., spp_offset=...,
+    device=...)`` renders a pass instead of ``render_image_sharded``: the
+    CLI passes ``geom_shard.render_image_geom_sharded`` this way.
     """
     from ..parallel.mesh import render_image_sharded
     from ..utils import ProgressBar, load_checkpoint, save_checkpoint
 
     device = resolve_device(device)
+    render_fn = render_fn or render_image_sharded
     h, w = scene.static.height, scene.static.width
     film_sum = np.zeros((h, w, 3), np.float32)
     done = 0
@@ -131,8 +155,8 @@ def render_image_progressive(scene: Scene, spp: int, key: Tensor,
     last_ck = done
     while done < spp:
         n = min(chunk, spp - done)
-        img = render_image_sharded(scene, n, key, integrator=integrator,
-                                   spp_offset=done, device=device)
+        img = render_fn(scene, n, key, integrator=integrator,
+                        spp_offset=done, device=device)
         film_sum = film_sum + img.cpu().numpy() * n
         done += n
         if bar:

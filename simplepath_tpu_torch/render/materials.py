@@ -14,9 +14,9 @@ the microfacet lobe, which reproduces the single-lobe fast path exactly.
 As in the JAX package, lobe-selection weights use a precomputed
 directional-albedo table for the microfacet lobe instead of the C++
 reference's 16-sample Monte-Carlo rho estimate per hit (the one-sample MIS
-estimator is unbiased for ANY selection weights).  The table depends on the
-materials only, so the port builds it once per scene
-(``scene.build.finalize_scene``) and carries it in ``MaterialArrays``.
+estimator is unbiased for ANY selection weights).  ``render_rays`` builds
+it from the scene's materials on every call, as the JAX package does
+(``render.film.with_rho_table``), and carries it in ``MaterialArrays``.
 
 RNG contract: ``sample`` consumes exactly (u_layer, u_lobe, u2[2]) —
 clearcoat layer select, MIS lobe select, and the lobe's own 2D sample.
@@ -293,8 +293,9 @@ def _microfacet_pdf_wi(wo: Tensor, wi: Tensor, alpha: Tensor) -> Tensor:
 def gather_material(materials: MaterialArrays, mid: Tensor) -> HitMaterial:
     """Per-hit material rows (the rho table rides in ``materials``)."""
     if materials.rho_table is None:
-        raise ValueError("materials carry no rho table: build the scene with "
-                         "build_scene/load_scene or convert.scene_from_numpy")
+        raise ValueError("materials carry no rho table: render through "
+                         "render_rays, or build it with "
+                         "render.film.with_rho_table")
     return HitMaterial(
         base_type=materials.base_type[mid],
         albedo=materials.albedo[mid],

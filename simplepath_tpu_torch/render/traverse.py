@@ -6,7 +6,9 @@ out (``ro``/``rd`` are ``[N,3]``, ``t_min``/``t_max`` ``[N]``): the triangle
 BVH is searched by ``cuda_traverse.closest`` / ``anyhit`` (CUDA kernels on
 CUDA tensors, their plain versions on CPU tensors), the few analytic
 primitives by vectorized brute force, and the winner is re-intersected from
-the scene's own tables.  Geometry sharding is a later slice.
+the scene's own tables.  A geometry-sharded scene's forest is searched by
+``parallel.geom_shard.sharded_closest`` / ``sharded_anyhit``: the same
+wrappers once per shard, then the shards' answers combined.
 
 Primitive kind tags in Hit: 0 = triangle, 1 = sphere, 2 = plane.
 """
@@ -63,11 +65,14 @@ def _closer(a: Hit, b: Hit) -> Hit:
                *(torch.where(take_a, x, y) for x, y in zip(a[1:], b[1:])))
 
 
-def _check_unsharded(scene: Scene) -> None:
-    if scene.static.geom_shards:
-        raise NotImplementedError(
-            "geometry-sharded scenes (parallel/geom_shard.py) are ported in "
-            "a later slice of simplepath_tpu_torch")
+def _forest_query(scene: Scene, name: str):
+    """``geom_shard.sharded_closest`` / ``sharded_anyhit`` bound to the
+    scene's forest layout, with the wrappers' signature."""
+    import functools
+
+    from ..parallel import geom_shard
+    return functools.partial(getattr(geom_shard, name),
+                             mesh=geom_shard.scene_geom_mesh(scene))
 
 
 # ---------------------------------------------------------- brute force
@@ -113,7 +118,6 @@ def scene_intersect_batch(scene: Scene, ro: Tensor, rd: Tensor, t_min: Tensor,
     detached-decision estimator.  Dead lanes carry ``t_max = -inf`` and fail
     every test without special-casing.
     """
-    _check_unsharded(scene)
     n = ro.shape[0]
     ro_d, rd_d = ro.detach(), rd.detach()
     t_min_d, t_max_d = t_min.detach(), t_max.detach()
@@ -121,7 +125,10 @@ def scene_intersect_batch(scene: Scene, ro: Tensor, rd: Tensor, t_min: Tensor,
     st = scene.static
     if st.num_triangles > 0:
         if st.has_bvh:
-            t, fi, beta, gamma, valid = cuda_traverse.closest(
+            closest = cuda_traverse.closest
+            if st.geom_shards:
+                closest = _forest_query(scene, "sharded_closest")
+            t, fi, beta, gamma, valid = closest(
                 scene.bvh.records, ro_d.contiguous(), rd_d.contiguous(),
                 t_min_d.contiguous(), t_max_d.contiguous())
             tri = Hit(valid=valid,
@@ -219,7 +226,6 @@ def scene_intersect_p_batch(scene: Scene, ro: Tensor, rd: Tensor, t_min: Tensor,
     collapsed interval (t_max = -inf) and are culled on their first visit.
     Fully detached — visibility is a discrete decision.
     """
-    _check_unsharded(scene)
     ro, rd = ro.detach(), rd.detach()
     t_min, t_max = t_min.detach(), t_max.detach()
     n = ro.shape[0]
@@ -227,7 +233,10 @@ def scene_intersect_p_batch(scene: Scene, ro: Tensor, rd: Tensor, t_min: Tensor,
     found = torch.zeros(n, dtype=torch.bool, device=ro.device)
     if st.num_triangles > 0:
         if st.has_bvh:
-            found = found | cuda_traverse.anyhit(
+            anyhit = cuda_traverse.anyhit
+            if st.geom_shards:
+                anyhit = _forest_query(scene, "sharded_anyhit")
+            found = found | anyhit(
                 scene.bvh.records, ro.contiguous(), rd.contiguous(),
                 t_min.contiguous(), t_max.contiguous())
         else:

@@ -13,7 +13,6 @@ cache when they can be (``scene/cache.py``).
 
 from __future__ import annotations
 
-import dataclasses
 import logging
 import os
 
@@ -35,7 +34,7 @@ from .types import (ENV_CONST, ENV_IBL, ENV_NONE, MAT_GLOSSY, MAT_LAMBERTIAN,
 
 logger = logging.getLogger("simplepath_tpu_torch")
 
-__all__ = ["build_scene", "load_scene", "finalize_scene"]
+__all__ = ["build_scene", "load_scene"]
 
 BVH_MIN_TRIS = 64  # below this a vectorized brute-force scan is faster
 
@@ -220,17 +219,6 @@ def _build_geometry(mesh_jobs, use_bvh: bool | None) -> dict:
     return out
 
 
-def finalize_scene(scene: Scene, device) -> Scene:
-    """Move a host-assembled scene to ``device`` and build the materials'
-    rho table there — once per scene (it depends on the materials only)."""
-    from ..render.materials import build_rho_tables
-
-    scene = scene.to(device)
-    mats = dataclasses.replace(scene.materials, rho_table=None)
-    mats = dataclasses.replace(mats, rho_table=build_rho_tables(mats))
-    return dataclasses.replace(scene, materials=mats)
-
-
 def build_scene(ps: ParsedScene, *, cli_integrator: str | None = None,
                 use_bvh: bool | None = None, device=None) -> Scene:
     """ParsedScene → Scene on ``device`` (None = CUDA; raises without one)."""
@@ -319,7 +307,7 @@ def build_scene(ps: ParsedScene, *, cli_integrator: str | None = None,
     scene = Scene(static=static, spheres=spheres, planes=planes,
                   triangles=triangles, bvh=bvh, materials=materials,
                   sphere_lights=sphere_lights, env=env, camera=camera)
-    return finalize_scene(scene, device)
+    return scene.to(device)
 
 
 def load_scene(path, *, cli_integrator: str | None = None,

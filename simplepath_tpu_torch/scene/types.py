@@ -7,7 +7,9 @@ tags.  Field names, shapes and dtypes are the JAX package's (float32 /
 int32), so a scene converts field by field (``convert.py``).
 
 Static shape/config data (counts, depths, integrator choice) lives in the
-hashable ``SceneStatic``.  ``Scene.to(device)`` moves every tensor.
+hashable ``SceneStatic``.  ``Scene.to(device)`` moves every tensor.  A
+geometry-sharded scene also carries the layout of its forest over the ranks
+(``Scene.geom_mesh``), as a JAX array carries its sharding.
 """
 
 from __future__ import annotations
@@ -175,10 +177,10 @@ class MaterialArrays:
       optionally wrapped in a clearcoat layer.
     One record per material: base_type tags the base; has_clearcoat gates the
     layer.  ``rho_table`` is the microfacet lobe's directional-albedo table
-    (``render.materials.build_rho_tables``): it depends on the materials
-    only, so the port builds it ONCE per scene (the JAX package rebuilds it
-    per ``render_rays`` call), and ``diff.grad.set_params`` rebuilds it from
-    new materials, in the autograd graph; None means "not built yet".
+    (``render.materials.build_rho_tables``).  ``render_rays`` builds it
+    anew from the materials on every call, as the JAX package does, so a
+    replaced material never renders with a stale table; a built scene
+    carries None ("not built yet").
     """
     base_type: Any      # [M] int32
     albedo: Any         # [M,3] lambertian diffuse color
@@ -248,7 +250,8 @@ class SceneStatic:
     # reverse-mode rendering (diff/grad.py): every bounce runs under
     # torch.utils.checkpoint, and the coherence sort is off
     differentiable: bool = False
-    # geometry sharding is a later slice: must be 0
+    # D > 0: the BVH is a forest of D sub-BVHs (parallel/geom_shard.py),
+    # bvh.records [shards on this process, M, 128]
     geom_shards: int = 0
 
 
@@ -264,13 +267,17 @@ class Scene:
     sphere_lights: SphereLightArrays
     env: EnvLightArrays | None
     camera: CameraArrays
+    # where the shards of a geometry-sharded scene live
+    # (parallel.geom_shard.GeomMesh); None: every shard on this process
+    geom_mesh: Any = None
 
     def to(self, device) -> "Scene":
         return Scene(
-            static=self.static,
+            static=self.static, geom_mesh=self.geom_mesh,
             **{f.name: (None if getattr(self, f.name) is None
                         else getattr(self, f.name).to_device(device))
-               for f in dataclasses.fields(self) if f.name != "static"})
+               for f in dataclasses.fields(self)
+               if f.name not in ("static", "geom_mesh")})
 
     @property
     def device(self) -> torch.device:

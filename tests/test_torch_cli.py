@@ -137,11 +137,14 @@ def test_cli_default_device_raises_without_cuda(tmp_path):
                                  prng_key(0))
 
 
-def test_cli_geom_shards_names_the_later_slice(tmp_path):
+def test_cli_geom_shards_names_the_later_slice(tmp_path, capsys):
+    """--geom-shards builds a forest (parallel/geom_shard.py): a scene with
+    fewer triangles than shards (TINY has none) is a usage error."""
     scene = tmp_path / "tiny.sp"
     scene.write_text(TINY)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(SystemExit):
         cli.main([str(scene), "--platform", "cpu", "--geom-shards", "2"])
+    assert "at least one triangle per shard" in capsys.readouterr().err
 
 
 def test_cli_test_flag_runs_the_port_tests(monkeypatch):

@@ -32,6 +32,7 @@ from simplepath_tpu_torch.convert import scene_from_numpy
 from simplepath_tpu_torch.core.rng import fold_in, pixel_jitter, prng_key
 from simplepath_tpu_torch.render import integrators as TI
 from simplepath_tpu_torch.render.camera import generate_ray
+from simplepath_tpu_torch.render.film import with_rho_table
 
 # many small tensor ops: one intra-op thread is as fast, and the test
 # workers that run side by side do not fight over the cores
@@ -96,7 +97,9 @@ def dynamic_scenes():
         js.static, russian_roulette_depth=0))
     rs = np.random.RandomState(0)
     xs, ys = rs.randint(0, 48, 16), rs.randint(24, 48, 16)
-    return js, convert(js), xs, ys
+    # the integrators are called directly here: their caller builds the rho
+    # table, as the JAX integrators' caller passes it
+    return js, with_rho_table(convert(js)), xs, ys
 
 
 def jax_dynamic_samples(js, xs, ys, seed):

@@ -14,6 +14,7 @@ import simplepath_tpu as J
 import simplepath_tpu_torch as T
 from simplepath_tpu.render.materials import build_rho_tables as j_build_rho
 from simplepath_tpu_torch.convert import scene_from_numpy
+from simplepath_tpu_torch.render.film import with_rho_table
 from simplepath_tpu_torch.scene import bvh as tbvh
 
 # many small tensor ops: one intra-op thread is as fast, and the test
@@ -72,10 +73,14 @@ def test_bvh_records_byte_identical(pair):
 
 
 def test_rho_table_built_once_matches_jax(pair):
+    """The scene carries no table (render_rays builds it from the materials
+    on every call, as the JAX package does); the one built from its
+    materials equals JAX's."""
     js, ts = pair
+    assert ts.materials.rho_table is None
     ref = np.asarray(j_build_rho(js.materials))
-    np.testing.assert_allclose(ts.materials.rho_table.numpy(), ref,
-                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(with_rho_table(ts).materials.rho_table.numpy(),
+                               ref, rtol=1e-5, atol=1e-7)
 
 
 def test_converted_scene_equals_own_build(pair):
@@ -89,16 +94,18 @@ def test_converted_scene_equals_own_build(pair):
             assert g.name == "static" or b is None
             continue
         for f in dataclasses.fields(a):
-            assert torch.equal(getattr(a, f.name), getattr(b, f.name)), \
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            # the rho table is None in both: render_rays builds it
+            assert (x is None and y is None) or torch.equal(x, y), \
                 f"{g.name}.{f.name}"
 
 
 def test_scene_to_moves_every_tensor():
-    ts = T.load_scene(scene_path("g_mesh_ply"), device="cpu")
+    ts = with_rho_table(T.load_scene(scene_path("g_mesh_ply"), device="cpu"))
     moved = ts.to("cpu")
     assert moved.static is ts.static and moved.device == torch.device("cpu")
     assert torch.equal(moved.triangles.v0, ts.triangles.v0)
-    assert moved.materials.rho_table is not None
+    assert torch.equal(moved.materials.rho_table, ts.materials.rho_table)
 
 
 def _synthetic_mesh(n_side=110, seed=0):

@@ -274,8 +274,22 @@ def test_scene_intersect_lights_matches_jax(scene_pair):
 
 
 def test_geometry_shards_name_the_later_slice(scenes):
+    """A scene that says it is geometry-sharded goes through the forest
+    combine (parallel/geom_shard.py): a flat record table there raises, and
+    a forest of one shard gives the unsharded hits."""
     import dataclasses
     _, ts = scenes
+    rays = _t(_incoherent(64, 1))
     sharded = dataclasses.replace(ts, static=dataclasses.replace(ts.static, geom_shards=2))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TTr.scene_intersect_batch(sharded, *_t(_incoherent(4, 1)))
+    with pytest.raises(ValueError, match="forest of 2 shard"):
+        TTr.scene_intersect_batch(sharded, *rays)
+    with pytest.raises(ValueError, match="forest of 2 shard"):
+        TTr.scene_intersect_p_batch(sharded, *rays)
+    one = dataclasses.replace(
+        ts, static=dataclasses.replace(ts.static, geom_shards=1),
+        bvh=dataclasses.replace(ts.bvh, records=ts.bvh.records[None]))
+    for a, b in zip(TTr.scene_intersect_batch(one, *rays),
+                    TTr.scene_intersect_batch(ts, *rays)):
+        assert torch.equal(a, b)
+    assert torch.equal(TTr.scene_intersect_p_batch(one, *rays),
+                       TTr.scene_intersect_p_batch(ts, *rays))
