@@ -64,6 +64,18 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            train_step_multihost calls on the train phase's 65,536 pixels
            (the albedo), the first's loss and albedo against the
            one-process step (rtol 1e-5 / atol 1e-5)
+  topology the kernels at the BVH topologies other than the default
+           (SIMPLEPATH_BVH_WIDTH=16; SIMPLEPATH_BVH_LEAF=24), each in fresh
+           processes, since the knobs are read at import: the bench loaded
+           and that topology's library built; both kernels against their
+           plain versions on the kernels phase's five ray sets (times, rows
+           visited, the bound from W and K); a 128x128 flagship render
+           through the kernels bit-equal to the plain-version render; the
+           1024x1024 flagship frame at 1 spp under the render phase's key
+           within max abs diff 1e-4 of the default topology's frame, its
+           seconds timed in turns with the default topology's (processes in
+           the order default, W=16, K=24, K=24, W=16, default) and its
+           launches of each kernel
 
 Each phase's seconds follow it on a line of their own, with what the host
 took to enqueue one tiny kernel, and the live Python objects, just before
@@ -95,7 +107,7 @@ SCENE = os.path.join(HERE, "scenes", "bunny_bench.sp")
 OUT_DIR = os.path.join(HERE, "chip_smoke_out")
 IBL_TEST_SCENE = os.path.join(HERE, "tests", "scenes", "g_ibl_rrnee.sp")
 PHASES = ("device", "build", "kernels", "render", "paths", "parity", "cli",
-          "train", "geom", "ranks")
+          "train", "geom", "ranks", "topology")
 # the traced integrators besides the flagship, and whether each has NEE
 # (next-event estimation: shadow rays through sp_anyhit)
 PATHS = {"direct_lighting": True, "brute_force": False,
@@ -108,20 +120,24 @@ IBL_SHAPE = (1024, 2048)
 # float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-# Arithmetic of one visit, counted from csrc/traverse.cu: an internal row is
-# 8 slab tests (6 sub, 6 mul, 12 min/max, 3 compares each) plus the 19
-# compare-exchanges of the sorting network; a triangle test is 44 mul/add/sub,
-# one divide and 8 compares.
-FLOPS_INTERNAL_VISIT = 8 * 27 + 19
+# Arithmetic of one triangle test, counted from csrc/traverse.cu: 44
+# mul/add/sub, one divide and 8 compares (visit_costs: the rest).
 FLOPS_TRIANGLE_TEST = 53
-# Bytes the kernels' loads ask for on one visit (csrc/traverse.cu): the 7
-# fields of the 8 children of an internal row; of a leaf row its 16 B of meta
-# and the 9 fields of all 12 triangle slots, whatever the leaf's count.
-INTERNAL_VISIT_BYTES = 7 * 8 * 4
-LEAF_VISIT_BYTES = 16 + 12 * 9 * 4
 BOUNCES = (0, 2, 5)
 TPU_KERNEL = {"closest": "simplepath_tpu/render/pallas_traverse.py:466",
               "anyhit": "simplepath_tpu/render/pallas_traverse.py:503"}
+
+
+def visit_costs() -> tuple:
+    """What one visit costs at this process's BVH topology (W, K), counted
+    from csrc/traverse.cu: (operations of an internal row: W slab tests of
+    6 sub, 6 mul, 12 min/max and 3 compares, plus the compare-exchanges of
+    the W-key sorting network; bytes an internal visit's loads ask for: the
+    7 fields of W children; bytes a leaf visit's ask for: 16 B of meta and
+    the 9 fields of all K triangle slots, whatever the leaf's count)."""
+    from simplepath_tpu_torch.render.cuda_traverse import batcher_pairs
+    from simplepath_tpu_torch.scene.bvh import LEAF_SIZE, WIDTH
+    return 27 * WIDTH + len(batcher_pairs(WIDTH)), 28 * WIDTH, 16 + 36 * LEAF_SIZE
 
 
 def emit(phase: str, **fields) -> None:
@@ -366,31 +382,33 @@ def compare_case(kernel: str, case: str, records, rays) -> dict:
     dead = t_max < t_min
     visits = stats.pop("ray_internal_visits") + stats.pop("ray_leaf_visits")
     visits = torch.where(dead, 0, visits)
+    rays_a_warp = 32 // ct.LANES_PER_RAY
     res.update(dead_rays=int(dead.sum()),
                visits_per_ray_mean=float(visits.float().mean()),
                visits_per_ray_max=int(visits.max()),
                lane_step_share_32_rays_a_warp=lane_step_share(visits, 32),
-               lane_step_share_4_rays_a_warp=lane_step_share(visits, 4))
+               **{f"lane_step_share_{rays_a_warp}_rays_a_warp":
+                  lane_step_share(visits, rays_a_warp)})
 
     # The least this run's rays ask of the card.  Bytes: each table row that
     # a live ray visits is read once, at what a visit of its kind reads, the
     # rays once, the results written once.  Operations: every visit's
     # arithmetic.  The root pops of dead rays count in neither.
+    internal_ops, internal_bytes, leaf_bytes = visit_costs()
     internal_visits = stats["internal_visits"] - res["dead_rays"]
     distinct_internal = int(stats.pop("internal_rows_visited").sum())
     distinct_leaf = int(stats.pop("leaf_rows_visited").sum())
-    table_bytes = (distinct_internal * INTERNAL_VISIT_BYTES
-                   + distinct_leaf * LEAF_VISIT_BYTES)
+    table_bytes = distinct_internal * internal_bytes + distinct_leaf * leaf_bytes
     in_bytes = table_bytes + n * (3 + 3 + 1 + 1) * 4
-    flops = (internal_visits * FLOPS_INTERNAL_VISIT
+    flops = (internal_visits * internal_ops
              + stats["triangle_tests"] * FLOPS_TRIANGLE_TEST)
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS * 1e3
     res.update(stats, rows_visited=internal_visits + stats["leaf_visits"],
                distinct_internal_rows=distinct_internal,
                distinct_leaf_rows=distinct_leaf, table_bytes=table_bytes,
-               row_bytes=internal_visits * INTERNAL_VISIT_BYTES
-               + stats["leaf_visits"] * LEAF_VISIT_BYTES,
+               row_bytes=internal_visits * internal_bytes
+               + stats["leaf_visits"] * leaf_bytes,
                min_bytes=in_bytes + out_bytes, flops=flops,
                bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
@@ -618,9 +636,10 @@ def shrink(scene, side: int):
         camera=dataclasses.replace(scene.camera, wh=wh))
 
 
-def parity_case(path: str, scene, side: int = 128, spp: int = 1) -> None:
+def parity_case(path: str, scene, side: int = 128, spp: int = 1) -> dict:
     """One render through the kernels and one with the plain versions
-    forced, both on the card, same key: allclose at rtol 1e-4, atol 1e-5."""
+    forced, both on the card, same key: allclose at rtol 1e-4, atol 1e-5.
+    Returns what it emitted."""
     from simplepath_tpu_torch.core.rng import prng_key
     from simplepath_tpu_torch.parallel.mesh import render_image_sharded
     from simplepath_tpu_torch.render import cuda_traverse as ct
@@ -639,16 +658,18 @@ def parity_case(path: str, scene, side: int = 128, spp: int = 1) -> None:
     if dict(ct.launch_counts) != launches:
         raise AssertionError(f"{path}: the plain-version render launched a kernel")
     close = torch.isclose(a, b, rtol=1e-4, atol=1e-5)
-    emit("parity", path=path, integrator=small.static.integrator, side=side,
-         spp=spp, kernel_launches=launches, plain_render_s=plain_s,
-         mismatched_values=int((~close).sum()),
-         max_abs_diff=float((a - b).abs().max()), mean_kernels=float(a.mean()),
-         mean_plain=float(b.mean()))
+    res = dict(path=path, integrator=small.static.integrator, side=side,
+               spp=spp, kernel_launches=launches, plain_render_s=plain_s,
+               mismatched_values=int((~close).sum()),
+               max_abs_diff=float((a - b).abs().max()),
+               mean_kernels=float(a.mean()), mean_plain=float(b.mean()))
+    emit("parity", **res)
     if not bool(close.all()) or not float(a.mean()) > 0:
         raise AssertionError(f"{path}: kernel render and plain-version "
                              "render differ")
     if launches["closest"] <= 0:
         raise AssertionError(f"{path}: the kernel render launched no sp_closest")
+    return res
 
 
 def dynamic_rr_buckets_filled(scene, side: int = 64, spp: int = 20) -> dict:
@@ -1427,34 +1448,186 @@ def phase_ranks(scene) -> dict:
     return by_path
 
 
-def kernels_line(results: dict, launches: dict, by_path: dict) -> dict:
-    """The summary object: one entry per kernel, times from the N=65,536
-    primary-ray case (the main path's chunk size), every ray set under
-    ``cases``."""
-    from simplepath_tpu_torch.render.cuda_traverse import LANES_PER_RAY
+# The BVH topologies besides the default that the topology phase drives,
+# each as the environment its processes are started with (the knobs are read
+# at import), and the order of its processes: the default topology's frame
+# first and last, each other topology's kernels, parity and frame, then its
+# frame alone again, so that every topology's frame is timed in turns.
+DEFAULT_TOPOLOGY = "w8_k12"
+TOPOLOGIES = {"w8_k12": {"SIMPLEPATH_BVH_WIDTH": "8", "SIMPLEPATH_BVH_LEAF": "12"},
+              "w16_k12": {"SIMPLEPATH_BVH_WIDTH": "16", "SIMPLEPATH_BVH_LEAF": "12"},
+              "w8_k24": {"SIMPLEPATH_BVH_WIDTH": "8", "SIMPLEPATH_BVH_LEAF": "24"}}
+TOPOLOGY_TURNS = (("w8_k12", "frame"), ("w16_k12", "full"), ("w8_k24", "full"),
+                  ("w8_k24", "frame"), ("w16_k12", "frame"), ("w8_k12", "frame"))
+TOPOLOGY_TIMEOUT_S = 400
+
+
+def run_topology(job: str, out: str) -> None:
+    """One process of the topology phase (``chip_smoke.py --topology-job
+    JOB``), at the topology its environment sets: with ``full``, the
+    bench's build, both kernels against their plain versions on the five
+    ray sets and the 128x128 render parity; with either job, the 1024x1024
+    flagship frame at 1 spp under prng_key(0), after a warm-up chunk.
+    Writes result.json and frame.npy into ``out``."""
+    import simplepath_tpu_torch as sp
+    from simplepath_tpu_torch.parallel.mesh import warmup_render
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+    from simplepath_tpu_torch.scene import bvh
+
+    res = {"job": job, "width": bvh.WIDTH, "leaf_size": bvh.LEAF_SIZE,
+           "leaf_rows": bvh.LEAF_ROWS, "kernel_stack": ct.KERNEL_STACK,
+           "lanes_per_ray": ct.LANES_PER_RAY}
+    t0 = time.time()
+    if job == "full":       # built anew, for what ptxas says of it
+        lib = ct.library_path()
+        res["ptxas"] = ct._compile_source(ct.KERNEL_SOURCE, lib,
+                                          verbose=True).splitlines()
+    else:
+        lib = ct.build_library()
+    ct._library()
+    res.update(library=os.path.relpath(lib, HERE), build_s=time.time() - t0)
+    t0 = time.time()
+    scene = sp.load_scene(SCENE)
+    torch.cuda.synchronize()
+    res.update(load_s=time.time() - t0,
+               record_rows=int(scene.bvh.records.shape[0]))
+    if job == "full":
+        res["kernels"] = list(phase_kernels(scene).values())
+        res["parity"] = parity_case("iterative_rrnee", scene)
+        if res["parity"]["max_abs_diff"] != 0.0:
+            raise AssertionError("the 128x128 kernel render is not bit-equal "
+                                 f"to the plain-version render: {res['parity']}")
+    res["warmup_s"] = warmup_render(scene, 1)
+    summary, img = render_frame("topology_frame", scene, 1)
+    check_launches("topology_frame", summary["launches"], nee=True)
+    res["frame"] = summary
+    np.save(os.path.join(out, "frame.npy"), img.cpu().numpy())
+    with open(os.path.join(out, "result.json"), "w") as f:
+        json.dump(res, f)
+
+
+def spawn_topology(name: str, job: str, out: str) -> dict:
+    """Run one topology-phase process in ``out`` and return its
+    result.json; raise with its output if it fails or runs past
+    TOPOLOGY_TIMEOUT_S."""
+    os.makedirs(out)
+    env = dict(os.environ, **TOPOLOGIES[name])
+    with open(os.path.join(out, "process.log"), "w+") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--topology-job", job,
+             "--topology-out", out], stdout=log, stderr=subprocess.STDOUT,
+            env=env)
+        try:
+            proc.wait(timeout=TOPOLOGY_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        if proc.returncode != 0:
+            log.seek(0)
+            raise AssertionError(f"the {name} {job} process failed (exit "
+                                 f"{proc.returncode}):\n{log.read()[-4000:]}")
+    with open(os.path.join(out, "result.json")) as f:
+        return json.load(f)
+
+
+def phase_topology() -> tuple:
+    """The kernels at each non-default topology, in fresh processes in the
+    order TOPOLOGY_TURNS: everything the full job checks, and its frame
+    within max abs diff 1e-4 of the default topology's
+    (tests/test_geom_shard.py's gate: only equal-t ties can differ).
+    Returns ({topology: kernels results}, {topology: frame launches})."""
+    import shutil
+
+    out = os.path.join(OUT_DIR, "topology")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    runs = []
+    for i, (name, job) in enumerate(TOPOLOGY_TURNS):
+        t0 = time.time()
+        res = spawn_topology(name, job, os.path.join(out, f"{i}_{name}_{job}"))
+        runs.append((name, job, res, time.time() - t0))
+    frames = {}                 # each topology's first frame
+    for i, (name, job, _, _) in enumerate(runs):
+        if name not in frames:
+            frames[name] = torch.from_numpy(np.load(os.path.join(
+                out, f"{i}_{name}_{job}", "frame.npy")))
+    ref = frames[DEFAULT_TOPOLOGY]
+    results, launches = {}, {}
+    for name, job, res, _ in runs:
+        if job != "full":
+            continue
+        for case in res["kernels"]:
+            emit("topology", topology=name, check="kernel", **case)
+        emit("topology", topology=name, check="parity", **res["parity"])
+        gate = held_against(frames[name], ref)
+        frame_s = {n: [r["frame"]["render_s"] for n2, _, r, _ in runs if n2 == n]
+                   for n in (name, DEFAULT_TOPOLOGY)}
+        emit("topology", topology=name, check="frame", width=res["width"],
+             leaf_size=res["leaf_size"], leaf_rows=res["leaf_rows"],
+             kernel_stack=res["kernel_stack"],
+             lanes_per_ray=res["lanes_per_ray"], record_rows=res["record_rows"],
+             library=res["library"], build_s=res["build_s"],
+             ptxas=res["ptxas"],
+             load_s=res["load_s"], launches=res["frame"]["launches"],
+             image_mean=res["frame"]["image_mean"],
+             max_memory_allocated=res["frame"]["max_memory_allocated"],
+             frame_s_in_turns=frame_s[name],
+             default_frame_s_in_turns=frame_s[DEFAULT_TOPOLOGY],
+             against_default=gate)
+        if not gate["max_abs_diff"] < 1e-4:
+            raise AssertionError(f"the {name} frame departs from the default "
+                                 f"topology's: {gate}")
+        results[name] = {(c["kernel"], c["case"]): c for c in res["kernels"]}
+        launches[name] = res["frame"]["launches"]
+    emit("topology", check="turns", order=[f"{n} {j}" for n, j, _, _ in runs],
+         process_s=[s for *_, s in runs],
+         frame_s=[r["frame"]["render_s"] for _, _, r, _ in runs])
+    return results, launches
+
+
+def kernel_entry(kernel: str, name: str, results: dict, launches: dict,
+                 width: int, leaf_size: int) -> dict:
+    """One kernel at one topology: times from the N=65,536 primary-ray case
+    (the main path's chunk size), every ray set under ``cases``."""
+    main = results[(kernel, "primary")]
+    cases = [c for k, c in results if k == kernel]
+    return {
+        "name": name, "route": "cuda",
+        "source": "simplepath_tpu_torch/csrc/traverse.cu",
+        "replaces": TPU_KERNEL[kernel],
+        "launches": launches.get(kernel, 0),
+        "max_abs_err": max(results[(kernel, c)]["max_abs_err"] for c in cases),
+        "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "topology": f"w{width}_k{leaf_size}",
+        "lanes_per_ray": width,
+        "cases": [{k: v for k, v in results[(kernel, c)].items() if k in (
+            "case", "n", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "rows_visited", "distinct_internal_rows", "distinct_leaf_rows",
+            "table_bytes", "row_traffic_ms", "row_GBps_achieved", "hits",
+            "dead_rays", "visits_per_ray_mean", "visits_per_ray_max")
+            or k.startswith("lane_step_share_")} for c in cases],
+    }
+
+
+def kernels_line(results: dict, launches: dict, by_path: dict,
+                 topologies: tuple = ({}, {})) -> dict:
+    """The summary object: each kernel at this process's topology (named
+    ``closest`` / ``anyhit``, launches from the render phase's frame) and at
+    every other topology the topology phase drove (``closest_w16_k12``, ...,
+    launches from that topology's frame)."""
+    from simplepath_tpu_torch.scene.bvh import LEAF_SIZE, WIDTH
     entries = []
-    for kernel in ("closest", "anyhit"):
-        main = results[(kernel, "primary")]
-        cases = [c for k, c in results if k == kernel]
-        entries.append({
-            "name": kernel, "route": "cuda",
-            "source": "simplepath_tpu_torch/csrc/traverse.cu",
-            "replaces": TPU_KERNEL[kernel],
-            "launches": launches.get(kernel, 0),
-            "max_abs_err": max(results[(kernel, c)]["max_abs_err"]
-                               for c in cases),
-            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "lanes_per_ray": LANES_PER_RAY,
-            "cases": [{k: results[(kernel, c)][k] for k in (
-                "case", "n", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "rows_visited", "distinct_internal_rows", "distinct_leaf_rows",
-                "table_bytes", "row_traffic_ms", "row_GBps_achieved", "hits",
-                "dead_rays", "visits_per_ray_mean", "visits_per_ray_max",
-                "lane_step_share_32_rays_a_warp",
-                "lane_step_share_4_rays_a_warp")}
-                for c in cases],
-        })
+    if results:
+        entries += [kernel_entry(k, k, results, launches, WIDTH, LEAF_SIZE)
+                    for k in ("closest", "anyhit")]
+    topo_results, topo_launches = topologies
+    for topo, res in topo_results.items():
+        knobs = TOPOLOGIES[topo]
+        entries += [kernel_entry(k, f"{k}_{topo}", res, topo_launches[topo],
+                                 int(knobs["SIMPLEPATH_BVH_WIDTH"]),
+                                 int(knobs["SIMPLEPATH_BVH_LEAF"]))
+                    for k in ("closest", "anyhit")]
     return {"kernels": entries, "launches_by_path": by_path}
 
 
@@ -1468,6 +1641,9 @@ def main() -> int:
     ap.add_argument("--world", type=int, default=RANKS,
                     help=argparse.SUPPRESS)
     ap.add_argument("--rank-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--topology-job", choices=("full", "frame"), default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--topology-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1481,6 +1657,9 @@ def main() -> int:
 
     if args.rank is not None:               # one rank of the ranks phase
         run_rank(args.rank, args.world, args.rank_out)
+        return 0
+    if args.topology_job is not None:       # one process of the topology phase
+        run_topology(args.topology_job, args.topology_out)
         return 0
     progress = {"phase": "setup"}
     try:
@@ -1546,10 +1725,15 @@ def run(args, phases, progress: dict) -> int:
         del render_img
     if "ranks" in phases:
         by_path.update(timed("ranks", phase_ranks, scene))
+    topologies = ({}, {})
+    if "topology" in phases:
+        topologies = timed("topology", phase_topology)
+        by_path.update({f"topology_{t}": n for t, n in topologies[1].items()})
 
-    if results:
+    if results or topologies[0]:
         print(json.dumps(kernels_line(
-            results, by_path.get("iterative_rrnee", {}), by_path)), flush=True)
+            results, by_path.get("iterative_rrnee", {}), by_path, topologies)),
+            flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,40 +10,50 @@
 // versions beside the wrappers (render/cuda_traverse.py: closest_plain,
 // anyhit_plain) are the same algorithm with the batch written out.
 //
+// The BVH topology is a compile-time parameter: -DSP_W=<branching factor>
+// -DSP_K=<triangles a leaf>, from scene/bvh.py's WIDTH and LEAF_SIZE (the
+// wrapper builds one library per topology, libsp_traverse_w{W}_k{K}.so).
+// Covered: W = 8 or 16, 1 <= K <= 32 (render/cuda_traverse.py WIDTHS,
+// LEAF_SIZES).  A leaf of 9K + 3 floats spans LEAF_ROWS = ceil((9K+3)/128)
+// consecutive rows, which lie back to back in the table, so its flat offsets
+// simply run on into the next row (K=24: two rows, meta at float 216).
+//
 // What bounds it on this card.  Not device memory: the table of a few
 // hundred thousand triangles (~16 MB) sits in the 50 MB L2 and a ray moves
 // 32 B in and 17 B out, so the byte bound of a 65,536-ray launch is ~6 us.
 // A launch is a wavefront of at most 65,536 rays, each a serial chain of
-// dependent row visits (6-18 a ray on average, 30-60 for the longest ray of
-// a wavefront).  A full wavefront is bound by instruction rate: the visits'
-// arithmetic, and a warp whose rays stand on rows of both kinds runs both
-// branches.  A late bounce, where a few hundred rays still live, is bound by
-// its longest chain at well under a microsecond a visit.
+// dependent row visits (6-18 a ray on average at W=8, K=12; 30-60 for the
+// longest ray of a wavefront).  A full wavefront is bound by instruction
+// rate: the visits' arithmetic, and a warp whose rays stand on rows of both
+// kinds runs both branches.  A late bounce, where a few hundred rays still
+// live, is bound by its longest chain at well under a microsecond a visit.
 //
-// What the design does about it: G = 8 LANES OF ONE WARP SHARE ONE RAY.
+// What the design does about it: G = W LANES OF ONE WARP SHARE ONE RAY.
 //   * A visit's work is spread over the group, so a chain step is short.
 //     Internal row: lane c loads the 7 floats of child c (each load of the
-//     group is one 32-byte sector) and does one slab test.  Leaf row: lane c
-//     tests triangle c and, for c < 4, triangle 8 + c; a three-step butterfly
-//     picks the first minimum.
-//   * A warp holds 4 rays, not 32: it waits for its slowest of 4 and runs at
-//     most 4 different rows a step.  65,536 rays are 524,288 threads, several
-//     waves of the 1,152 that an SM holds at 55 registers.
+//     group is one run of 4W bytes: a 32-byte sector at W=8, 64 bytes at
+//     W=16) and does one slab test.  Leaf row: lane c tests triangles c,
+//     c + G, ... (TPL = ceil(K/G) slots: at W=8, K=12 triangle c and, for
+//     c < 4, 8 + c; at W=16, K=12 one slot and lanes 12-15 idle; at W=8,
+//     K=24 three); a log2(G)-step butterfly picks the first minimum.
+//   * A warp holds 32/G rays, not 32: it waits for its slowest of 4 (W=8)
+//     or 2 (W=16) and runs at most that many different rows a step.
 //   * The hit children go on the stack far-to-near WITHOUT running the
 //     sorting network: where their keys all differ, a child's slot is the
-//     number of keys above its own, which 7 independent shuffles give.  Only
-//     where two hit children have equal keys does the group run the 19
-//     compare-exchanges of the Batcher network, across lanes in its 6
-//     parallel stages, because then the network's order is the one the plain
-//     version visits in.
+//     number of keys above its own, which G - 1 independent shuffles give.
+//     Only where two hit children have equal keys does the group run the
+//     Batcher network (19 compare-exchanges in 6 parallel stages at W=8, 63
+//     in 10 at W=16), across lanes, because then the network's order is the
+//     one the plain version visits in.
 //   * min/max that propagate NaN are one instruction each (min.NaN.f32).
-//   * The stack (64 refs a ray) lives in shared memory, 4 KB a block; every
-//     lane of a group keeps the ray, sp and the running best in registers.
+//   * The stack (64 refs a ray at W=8, 96 at W=16: what pack_records holds
+//     a tree to) lives in shared memory, 4 KB / 3 KB a block; every lane of
+//     a group keeps the ray, sp and the running best in registers.
 //   * The loads of a visit depend on nothing but the popped ref: a leaf's
 //     triangles are loaded and tested whatever its count says.
 //   * A ray whose interval is empty (t_max < t_min: the dead lanes of a late
 //     bounce carry t_max = -inf) writes its miss before reading any row.
-// Every shuffle, vote and __syncwarp names the group's own 8 lanes: the four
+// Every shuffle, vote and __syncwarp names the group's own G lanes: the
 // groups of a warp run the loop independently and leave it at different
 // times.  The per-lane arithmetic is the per-ray formulation's, operation
 // for operation, so results are bit-equal to the plain version's.
@@ -65,36 +75,76 @@
 //
 // Build (done at first use by render/cuda_traverse.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
-//        -shared -Xcompiler -fPIC -o libsp_traverse.so traverse.cu
+//        -shared -Xcompiler -fPIC -DSP_W=8 -DSP_K=12 \
+//        -o libsp_traverse_w8_k12.so traverse.cu
 // Plain C interface; each entry point launches on the given stream and
 // returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#if !defined(SP_W) || !defined(SP_K)
+#error "build with -DSP_W=<BVH width> -DSP_K=<leaf size> (scene/bvh.py WIDTH, LEAF_SIZE)"
+#endif
+
 namespace {
 
-constexpr int W = 8;             // BVH branching factor (scene/bvh.py WIDTH)
-constexpr int K = 12;            // triangles per leaf (LEAF_SIZE)
+constexpr int W = SP_W;          // BVH branching factor (scene/bvh.py WIDTH)
+constexpr int K = SP_K;          // triangles per leaf (LEAF_SIZE)
 constexpr int ROW = 128;         // floats per record row (RECORD_WIDTH)
-constexpr int STACK = 64;        // per-ray stack capacity (STACK_DEPTH)
-constexpr int G = 8;             // lanes of one warp that share a ray
+constexpr int G = W;             // lanes of one warp that share a ray
 constexpr int BLOCK = 128;       // threads per block
 constexpr int MIN_BLOCKS = 8;    // resident blocks per SM the registers must allow
 constexpr int RAYS = BLOCK / G;  // rays per block
 constexpr int TPL = (K + G - 1) / G;   // leaf slots a lane owns: triangle c + G*p
+constexpr int META = 9 * K;      // leaf floats META..META+2: base_lo, base_hi, count
 constexpr float NEG_BIG = -3.0e38f;
 
-static_assert(G == W, "lane c of a group owns child c of an internal row");
+static_assert(W == 8 || W == 16, "the template covers W = 8 and W = 16");
+static_assert(K >= 1 && K <= 32, "the template covers 1 <= K <= 32");
 static_assert(BLOCK % 32 == 0 && 32 % G == 0, "groups never straddle a warp");
+static_assert(7 * W <= ROW, "an internal row holds W boxes and refs");
 
-// The 19 compare-exchanges of batcher_pairs(8), levelled into stages whose
-// pairs touch disjoint elements (render/cuda_traverse.py::sort_stages).
-// Nibble e of a stage's word is the element that element e is compared
-// with, or e itself where it rests.
-constexpr int SORT_STAGES = 6;
-#define SP_SORT_PARTNERS {0x67452301u, 0x54761032u, 0x35607124u, \
-                          0x72143650u, 0x76325410u, 0x75634120u}
+// What depends on the width alone: the per-ray stack capacity
+// (render/cuda_traverse.py::kernel_stack) and the compare-exchanges of
+// batcher_pairs(W), levelled into stages whose pairs touch disjoint elements
+// (sort_stages).  Nibble e of a stage's word is the element that element e
+// is compared with, or e itself where it rests (sort_stage_partners).  A
+// build uses one of the two specialisations; the compiler is told not to
+// warn that the other goes unreferenced.
+#pragma nv_diag_suppress 177
+template <int N> struct Width;
+
+#define SP_SORT_PARTNERS_8 {0x67452301u, 0x54761032u, 0x35607124u, \
+                            0x72143650u, 0x76325410u, 0x75634120u}
+template <> struct Width<8> {
+    static constexpr int STACK = 64;
+    static constexpr int SORT_STAGES = 6;
+    using Word = unsigned int;
+    __device__ static __forceinline__ Word partners(int s) {
+        constexpr Word words[SORT_STAGES] = SP_SORT_PARTNERS_8;
+        return words[s];
+    }
+};
+
+#define SP_SORT_PARTNERS_16 {0xefcdab8967452301ull, 0xdcfe98ba54761032ull, \
+                             0xbde8f9ac35607124ull, 0x7a9cbed0f2143658ull, \
+                             0xfebadc9876325410ull, 0xfdebc9a875634120ull, \
+                             0xf65432187edcba90ull, 0xfedc7654ba983210ull, \
+                             0xfebadc7698325410ull, 0xfdebc9a785634120ull}
+template <> struct Width<16> {
+    static constexpr int STACK = 96;
+    static constexpr int SORT_STAGES = 10;
+    using Word = unsigned long long;
+    __device__ static __forceinline__ Word partners(int s) {
+        constexpr Word words[SORT_STAGES] = SP_SORT_PARTNERS_16;
+        return words[s];
+    }
+};
+
+#pragma nv_diag_default 177
+
+constexpr int STACK = Width<W>::STACK;   // per-ray stack capacity
 
 __device__ __forceinline__ float pmin(float a, float b) {
     // NaN-propagating minimum (torch.minimum semantics) in one instruction;
@@ -121,10 +171,10 @@ struct Ray {
 // afterwards lane j holds the j-th entry.
 __device__ __forceinline__ void sort_children(float& key, int& val, int c,
                                               unsigned gmask) {
-    constexpr unsigned partners[SORT_STAGES] = SP_SORT_PARTNERS;
+    using Net = Width<W>;
 #pragma unroll
-    for (int s = 0; s < SORT_STAGES; ++s) {
-        const int pe = (partners[s] >> (4 * c)) & 7;
+    for (int s = 0; s < Net::SORT_STAGES; ++s) {
+        const int pe = (int)((Net::partners(s) >> (4 * c)) & (G - 1));
         const float okey = __shfl_sync(gmask, key, pe, G);
         const int oval = __shfl_sync(gmask, val, pe, G);
         // the pair (a, b), a < b, swaps when key[a] < key[b]; both of its
@@ -163,7 +213,7 @@ __device__ __forceinline__ void visit_internal(const float* __restrict__ row,
     int val = cref;
     // Where the hit children's keys all differ, descending order is one
     // order only, and a child's place in it is the number of keys above its
-    // own: G - 1 independent shuffles instead of the network's 6 dependent
+    // own: G - 1 independent shuffles instead of the network's dependent
     // stages.  Equal keys of hit children (rare) take the order the network
     // gives them, so the network runs then.
     int place = 0;
@@ -262,10 +312,18 @@ traverse_kernel(const float* __restrict__ records,
                            c, gmask, stack, sp);
             continue;
         }
+        // a leaf's LEAF_ROWS rows are consecutive: flat offsets from its
+        // first row reach all of them
         const float* row = records + (size_t)(-ref - 1) * ROW;
-        const float4 meta = __ldg((const float4*)(row + 9 * K));   // floats 108..111
-        const int base = ((int)meta.y << 12) + (int)meta.x;
-        const int count = (int)meta.z;
+        int base, count;
+        if constexpr (META % 4 == 0) {   // 16-byte aligned (K=12: float 108)
+            const float4 meta = __ldg((const float4*)(row + META));
+            base = ((int)meta.y << 12) + (int)meta.x;
+            count = (int)meta.z;
+        } else {
+            base = ((int)__ldg(row + META + 1) << 12) + (int)__ldg(row + META);
+            count = (int)__ldg(row + META + 2);
+        }
 
         // This lane's first minimum over its own slots (ascending slot
         // order).  Every slot of the row is loaded and tested, whatever the

@@ -13,11 +13,18 @@ The kernels are hand-written CUDA C++ (``csrc/traverse.cu``): a group of
 stack — the per-ray semantics of the JAX package's ``_bvh_closest`` /
 ``_bvh_any``, including their tie rules (an equal-t hit found later does NOT
 replace the earlier one; children are ordered far-to-near by the ray's own
-unclamped ``tnear``, equal keys in the order the 19-pair Batcher network
-leaves them in, which the group then runs across its lanes in the stages of
-:func:`sort_stages`).  They are built with ``nvcc`` at first use into the
-package's ignored ``build/`` directory and loaded with ctypes; nothing is
-built or imported from CUDA when this module is imported.
+unclamped ``tnear``, equal keys in the order the Batcher network leaves them
+in — 19 pairs at W=8, 63 at W=16 — which the group then runs across its
+lanes in the stages of :func:`sort_stages`).
+
+The BVH topology (``scene/bvh.py``: WIDTH, LEAF_SIZE, set by
+``SIMPLEPATH_BVH_WIDTH`` / ``SIMPLEPATH_BVH_LEAF`` before import) is a
+compile-time parameter of the kernels: each topology has its own library,
+``build/libsp_traverse_w{W}_k{K}.so``, built with ``nvcc -DSP_W=W -DSP_K=K``
+at first use and loaded with ctypes; nothing is built or imported from CUDA
+when this module is imported.  :data:`WIDTHS` × :data:`LEAF_SIZES` is what
+the kernel template covers; any other topology raises
+``NotImplementedError``, on the CPU as on the GPU.
 
 Dispatch rule: a CUDA tensor goes to the kernel, or the call raises — there
 is no fallback from kernel to plain version.  A CPU tensor goes to the plain
@@ -41,22 +48,45 @@ from ..scene.bvh import LEAF_ROWS, LEAF_SIZE, RECORD_WIDTH, WIDTH
 
 __all__ = ["closest", "anyhit", "closest_plain", "anyhit_plain",
            "launch_counts", "reset_launch_counts", "plain_versions",
-           "build_library", "batcher_pairs", "sort_stages",
-           "sort_stage_partners", "STACK_DEPTH", "LANES_PER_RAY"]
+           "build_library", "library_path", "topology_flags",
+           "check_topology", "batcher_pairs", "sort_stages",
+           "sort_stage_partners", "stack_depth", "kernel_stack",
+           "STACK_DEPTH", "KERNEL_STACK", "MAX_STACK", "LANES_PER_RAY",
+           "WIDTHS", "LEAF_SIZES"]
 
-# Per-ray stack capacity of the kernels and the plain versions; worst case
-# is depth*(W-1)+1 entries, and scene/bvh.py::pack_records asserts that a
-# table fits before it is ever traversed.
-STACK_DEPTH = 64
+# The topologies the kernel template covers (csrc/traverse.cu): a group of W
+# lanes a ray, so W divides a warp and 7W floats fit a row; at most 32
+# triangles a leaf (at most 4 slots a lane, 3 rows a leaf).
+WIDTHS = (8, 16)
+LEAF_SIZES = range(1, 33)
+# The kernels' shared-memory stack never holds more refs than this (the JAX
+# package's packet kernels' MAX_STACK).
+MAX_STACK = 96
+
+
+def stack_depth(width: int) -> int:
+    """The plain versions' per-ray stack at branching factor ``width``: the
+    JAX package's XLA traversal's STACK_DEPTH."""
+    return 64 if width <= 8 else 128
+
+
+def kernel_stack(width: int) -> int:
+    """The kernels' per-ray stack: min(MAX_STACK, stack_depth), the capacity
+    scene/bvh.py::pack_records holds a tree to (worst case depth*(W-1)+1
+    entries), as the JAX package's pack does."""
+    return min(MAX_STACK, stack_depth(width))
+
+
+STACK_DEPTH = stack_depth(WIDTH)
+KERNEL_STACK = kernel_stack(WIDTH)
 # Lanes of one warp that share a ray in the kernels: one lane per child of an
-# internal row (a compile-time constant of csrc/traverse.cu).
-LANES_PER_RAY = 8
+# internal row.
+LANES_PER_RAY = WIDTH
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
 KERNEL_SOURCE = os.path.join(_PKG, "csrc", "traverse.cu")
 BUILD_DIR = os.path.join(_PKG, "build")
-_LIB_PATH = os.path.join(BUILD_DIR, "libsp_traverse.so")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -94,15 +124,39 @@ def _nvcc() -> str:
     return "nvcc"  # on PATH, or the build raises
 
 
+def check_topology(width: int, leaf_size: int) -> None:
+    """Raise NotImplementedError for a BVH topology that the kernel template
+    does not cover (the plain versions refuse it too, so a topology never
+    runs on the CPU that the card cannot run)."""
+    if width not in WIDTHS or leaf_size not in LEAF_SIZES:
+        raise NotImplementedError(
+            f"traversal covers WIDTH in {WIDTHS} and LEAF_SIZE in "
+            f"{LEAF_SIZES.start}..{LEAF_SIZES.stop - 1}; got WIDTH={width}, "
+            f"LEAF_SIZE={leaf_size}")
+
+
+def topology_flags(width: int = WIDTH, leaf_size: int = LEAF_SIZE) -> list[str]:
+    """The nvcc defines that instantiate csrc/traverse.cu at a topology."""
+    check_topology(width, leaf_size)
+    return [f"-DSP_W={width}", f"-DSP_K={leaf_size}"]
+
+
+def library_path(width: int = WIDTH, leaf_size: int = LEAF_SIZE) -> str:
+    """Where the library of one topology is built."""
+    return os.path.join(BUILD_DIR, f"libsp_traverse_w{width}_k{leaf_size}.so")
+
+
 def _compile_source(source: str, out: str, flags: tuple[str, ...] = (),
                    verbose: bool = False) -> str:
-    """``nvcc`` one traversal source for sm_90a into the shared library
-    ``out``; returns what ptxas said (with ``verbose``: registers, shared
-    memory and spills per kernel).  Raises if nvcc fails."""
+    """``nvcc`` one traversal source for sm_90a, at this process's topology
+    (:func:`topology_flags`; a source without the parameters ignores them),
+    into the shared library ``out``; returns what ptxas said (with
+    ``verbose``: registers, shared memory and spills per kernel).  Raises if
+    nvcc fails."""
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *flags] + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp, source]
+    cmd = [_nvcc(), *NVCC_FLAGS, *topology_flags(), *flags] \
+        + (["-Xptxas", "-v"] if verbose else []) + ["-o", tmp, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}\n"
@@ -112,15 +166,17 @@ def _compile_source(source: str, out: str, flags: tuple[str, ...] = (),
 
 
 def build_library(verbose: bool = False) -> str:
-    """Compile ``csrc/traverse.cu`` for sm_90a into ``build/`` unless an
-    up-to-date library is there; returns its path.  Raises if nvcc fails."""
-    if (os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(KERNEL_SOURCE)):
-        return _LIB_PATH
-    log = _compile_source(KERNEL_SOURCE, _LIB_PATH, verbose=verbose)
+    """Compile ``csrc/traverse.cu`` for sm_90a at this process's topology
+    into ``build/`` unless an up-to-date library is there; returns its path.
+    Raises if nvcc fails."""
+    path = library_path()
+    if (os.path.exists(path)
+            and os.path.getmtime(path) >= os.path.getmtime(KERNEL_SOURCE)):
+        return path
+    log = _compile_source(KERNEL_SOURCE, path, verbose=verbose)
     if verbose:
         print(log)
-    return _LIB_PATH
+    return path
 
 
 def _bind_library(path: str):
@@ -143,11 +199,9 @@ def _library():
 
 def _check_inputs(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
                   t_max: Tensor) -> int:
-    """Shapes, dtypes, devices and layout both paths rely on; returns N."""
-    if (WIDTH, LEAF_SIZE, LEAF_ROWS, RECORD_WIDTH) != (8, 12, 1, 128):
-        raise NotImplementedError(
-            "traversal supports the default BVH topology only (WIDTH=8, "
-            f"LEAF_SIZE=12); got WIDTH={WIDTH}, LEAF_SIZE={LEAF_SIZE}")
+    """Topology, shapes, dtypes, devices and layout both paths rely on;
+    returns N."""
+    check_topology(WIDTH, LEAF_SIZE)
     if records.dim() != 2 or records.shape[1] != RECORD_WIDTH:
         raise ValueError(f"records must be [M,{RECORD_WIDTH}], got "
                          f"{tuple(records.shape)}")
@@ -295,7 +349,7 @@ def sort_stages(n: int) -> tuple[tuple[tuple[int, int], ...], ...]:
 def sort_stage_partners(n: int = WIDTH) -> tuple[int, ...]:
     """:func:`sort_stages` as the kernel holds it: one word a stage, nibble e
     = the element that element e is compared with (e itself where it
-    rests)."""
+    rests); 32-bit words at n=8, 64-bit at n=16."""
     words = []
     for stage in sort_stages(n):
         partner = list(range(n))
@@ -386,12 +440,20 @@ def _visit_leaf(rec, ro, rd, t_min, cur_t_max):
 
 
 def _pop(records, stack, sp, active):
-    """Pop each active lane's top ref and gather its row (inactive lanes
-    read the root row; all their results are masked)."""
+    """Pop each active lane's top ref and gather its row, flattened: one row
+    at LEAF_ROWS=1, the LEAF_ROWS consecutive rows of a multi-row leaf
+    otherwise (an internal visit reads only the first 7W floats of them),
+    as the JAX package's ``_fetch_rows``.  Inactive lanes read the root
+    row; all their results are masked."""
     ar = torch.arange(sp.shape[0], device=sp.device)
     ref = torch.where(active, stack[ar, torch.clamp_min(sp - 1, 0)], 1)
     sp = torch.where(active, sp - 1, sp)
-    return ref, sp, records[torch.abs(ref) - 1]
+    row = torch.abs(ref) - 1
+    if LEAF_ROWS == 1:
+        return ref, sp, records[row]
+    rows = torch.clamp_max(row[:, None] + torch.arange(LEAF_ROWS, device=row.device),
+                           records.shape[0] - 1)
+    return ref, sp, records[rows].reshape(row.shape[0], LEAF_ROWS * RECORD_WIDTH)
 
 
 def _push(stack, sp, packed, n_push):

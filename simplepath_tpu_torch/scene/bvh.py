@@ -55,10 +55,11 @@ __all__ = ["build_bvh_wide", "build_nodes", "tree_depth", "pack_records",
            "make_packed_records",
            "LEAF_SIZE", "WIDTH", "RECORD_WIDTH", "LEAF_ROWS"]
 
-# Topology knobs (A/B-able via env, read once at import).  Only the
-# default topology (W=8, K=12, one row per leaf) is supported by the CUDA
-# kernels; the wrappers raise on any other.  Defaults are the shipped configuration; the
-# geometry cache key salts both, so switching never serves a stale layout.
+# Topology knobs (A/B-able via env, read once at import).  The CUDA kernels
+# are built for the topology set here (render/cuda_traverse.py: WIDTHS x
+# LEAF_SIZES; the wrappers raise on any other).  Defaults are the shipped
+# configuration; the geometry cache key salts both, so switching never
+# serves a stale layout.
 LEAF_SIZE = int(os.environ.get("SIMPLEPATH_BVH_LEAF", "12"))
                 # triangles per leaf (reference uses 4, BVHAccelerator.h:211
                 # — topology is ours to choose); >12 spills to multi-row
@@ -194,10 +195,11 @@ def tree_depth(child_meta: np.ndarray) -> int:
 
 
 def _stack_limit() -> int:
-    """The fixed per-ray stack capacity shared by the CUDA kernels and
-    their plain versions."""
-    from ..render.cuda_traverse import STACK_DEPTH
-    return STACK_DEPTH
+    """The tighter of the two traversal paths' fixed stack capacities: the
+    CUDA kernels' shared-memory stack (96 refs at most) and the plain
+    versions' (64 at W <= 8, else 128), as in the JAX package."""
+    from ..render.cuda_traverse import KERNEL_STACK
+    return KERNEL_STACK
 
 
 BASE_SHIFT = 12  # leaf base index split: base = hi * 2^12 + lo, both exact f32
@@ -221,7 +223,7 @@ def pack_records(nodes: dict, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     # Stack-safety invariant: traversal pops one ref and pushes up to W
     # children per internal visit, so the worst-case live stack is
     # depth*(W-1)+1 entries.  The kernels and their plain versions use
-    # FIXED per-ray stacks (cuda_traverse.STACK_DEPTH slots); a builder
+    # FIXED per-ray stacks (_stack_limit() slots at least); a builder
     # change that deepens the tree must fail HERE, at pack time, not as a
     # silent stack overflow in the kernel.
     depth = tree_depth(child_meta)

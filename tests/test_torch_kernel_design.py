@@ -2,11 +2,13 @@
 the CPU (the kernels themselves run only on a GPU, where ``chip_smoke.py``
 holds them against their plain versions):
 
-* the staged form of the 19-pair Batcher network that a group of lanes runs
-  with shuffles gives the order of the sequential pair list, ties and -inf
-  keys included;
-* the constants and the stage table written into ``csrc/traverse.cu`` are
-  those of ``scene/bvh.py`` and ``render/cuda_traverse.py``;
+* the staged form of the Batcher network that a group of lanes runs with
+  shuffles (19 pairs in 6 stages at W=8, 63 in 10 at W=16) gives the order
+  of the sequential pair list, ties and -inf keys included;
+* the constants and the stage tables written into ``csrc/traverse.cu``, at
+  each topology the kernel template is built for (``-DSP_W`` / ``-DSP_K``),
+  are those of ``scene/bvh.py`` and ``render/cuda_traverse.py``, and a
+  topology outside the template raises;
 * the group's butterfly reduction (smaller t, then smaller slot) picks what
   ``argmin`` picks in the plain version;
 * the plain versions' per-ray visit counts add up to the totals they report;
@@ -51,7 +53,7 @@ def _apply_staged(words, keys, vals):
     k, v = keys.clone(), vals.clone()
     n = k.shape[1]
     for word in words:
-        partner = torch.tensor([(word >> (4 * e)) & 7 for e in range(n)])
+        partner = torch.tensor([(word >> (4 * e)) & (n - 1) for e in range(n)])
         ok, ov = k[:, partner], v[:, partner]
         e = torch.arange(n)
         swap = torch.where(e < partner, k < ok, ok < k)
@@ -59,39 +61,49 @@ def _apply_staged(words, keys, vals):
     return k, v
 
 
-def _keys(kind, n=2000):
+KINDS = ["random", "ties", "neg_inf", "ties_and_neg_inf", "all_equal"]
+
+
+def _keys(kind, n=2000, w=8):
     rs = np.random.RandomState({"random": 0, "ties": 1, "neg_inf": 2,
                                 "ties_and_neg_inf": 3, "all_equal": 4}[kind])
-    k = rs.rand(n, 8).astype(np.float32)
+    k = rs.rand(n, w).astype(np.float32)
     if "ties" in kind:
-        k = np.round(k * 3) / 3            # four distinct values in eight lanes
+        k = np.round(k * 3) / 3            # four distinct values in w lanes
     if "neg_inf" in kind:
-        k[rs.rand(n, 8) < 0.4] = -np.inf
+        k[rs.rand(n, w) < 0.4] = -np.inf
     if kind == "all_equal":
         k[:] = 0.25
-    return torch.from_numpy(k), torch.arange(8).expand(n, 8).clone()
+    return torch.from_numpy(k), torch.arange(w).expand(n, w).clone()
 
 
-def test_sort_stages_are_the_19_pairs_in_disjoint_stages():
-    stages = ct.sort_stages(8)
-    assert sorted(p for s in stages for p in s) == sorted(ct.batcher_pairs(8))
-    assert sum(len(s) for s in stages) == 19 and len(stages) == 6
+def _check_stages(n, n_pairs, n_stages):
+    stages = ct.sort_stages(n)
+    assert len(ct.batcher_pairs(n)) == n_pairs
+    assert sorted(p for s in stages for p in s) == sorted(ct.batcher_pairs(n))
+    assert sum(len(s) for s in stages) == n_pairs and len(stages) == n_stages
     for stage in stages:
         touched = [e for pair in stage for e in pair]
         assert len(touched) == len(set(touched))
     # within each element's history the sequential order is kept
     flat = [p for s in stages for p in s]
-    for e in range(8):
-        assert [p for p in flat if e in p] == [p for p in ct.batcher_pairs(8) if e in p]
+    for e in range(n):
+        assert [p for p in flat if e in p] == [p for p in ct.batcher_pairs(n) if e in p]
 
 
-@pytest.mark.parametrize("kind", ["random", "ties", "neg_inf",
-                                  "ties_and_neg_inf", "all_equal"])
-def test_staged_sort_gives_the_sequential_order(kind):
-    keys, vals = _keys(kind)
-    rk, rv = _apply(ct.batcher_pairs(8), keys, vals)
-    by_stage = _apply([p for s in ct.sort_stages(8) for p in s], keys, vals)
-    shuffled = _apply_staged(ct.sort_stage_partners(8), keys, vals)
+def test_sort_stages_are_the_19_pairs_in_disjoint_stages():
+    _check_stages(8, 19, 6)
+
+
+def test_sort_stages_16_are_the_63_pairs_in_10_disjoint_stages():
+    _check_stages(16, 63, 10)
+
+
+def _check_staged_sort(kind, w):
+    keys, vals = _keys(kind, w=w)
+    rk, rv = _apply(ct.batcher_pairs(w), keys, vals)
+    by_stage = _apply([p for s in ct.sort_stages(w) for p in s], keys, vals)
+    shuffled = _apply_staged(ct.sort_stage_partners(w), keys, vals)
     for k, v in (by_stage, shuffled):
         assert torch.equal(k, rk) and torch.equal(v, rv)
     assert bool((rk[:, :-1] >= rk[:, 1:]).all())          # descending
@@ -99,9 +111,35 @@ def test_staged_sort_gives_the_sequential_order(kind):
     # with a ballot and lane j < count writes slot j
     pushed = rk > ct._NEG_BIG
     assert bool((pushed[:, :-1] | ~pushed[:, 1:]).all())
+    return keys, vals, rk, rv
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_staged_sort_gives_the_sequential_order(kind):
+    keys, vals, rk, rv = _check_staged_sort(kind, 8)
     # and it is the plain version's sort
     pk, pv = ct._sortw_desc(keys, vals)
     assert torch.equal(pk, rk) and torch.equal(pv, rv)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_staged_sort_16_gives_the_sequential_order(kind):
+    _check_staged_sort(kind, 16)
+
+
+@pytest.mark.parametrize("w", [8, 16])
+def test_partner_words_round_trip(w):
+    """Each stage's word decodes to an involution whose moved elements are
+    exactly that stage's pairs, and fits the kernel's word (32 bits at W=8,
+    64 at W=16)."""
+    words = ct.sort_stage_partners(w)
+    assert len(words) == len(ct.sort_stages(w))
+    for word, stage in zip(words, ct.sort_stages(w)):
+        assert 0 <= word < 1 << (4 * w)
+        partner = [(word >> (4 * e)) & (w - 1) for e in range(w)]
+        assert all(partner[partner[e]] == e for e in range(w))
+        assert sorted((e, p) for e, p in enumerate(partner) if e < p) == sorted(stage)
+        assert sum(p << (4 * e) for e, p in enumerate(partner)) == word
 
 
 def _pushed_by_place(keys, vals):
@@ -125,11 +163,9 @@ def _pushed_by_place(keys, vals):
     return out, tie
 
 
-@pytest.mark.parametrize("kind", ["random", "ties", "neg_inf",
-                                  "ties_and_neg_inf", "all_equal"])
-def test_placing_by_rank_pushes_the_networks_order(kind):
-    keys, vals = _keys(kind)
-    rk, rv = _apply(ct.batcher_pairs(8), keys, vals)
+def _check_placing(kind, w):
+    keys, vals = _keys(kind, w=w)
+    rk, rv = _apply(ct.batcher_pairs(w), keys, vals)
     expected = torch.where(rk > ct._NEG_BIG, rv, -1)
     out, tie = _pushed_by_place(keys, vals)
     assert torch.equal(out, expected)
@@ -138,7 +174,25 @@ def test_placing_by_rank_pushes_the_networks_order(kind):
     assert bool(tie.any()) == ("ties" in kind or kind == "all_equal")
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_placing_by_rank_pushes_the_networks_order(kind):
+    _check_placing(kind, 8)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_placing_by_rank_16_pushes_the_networks_order(kind):
+    _check_placing(kind, 16)
+
+
 # ---------------------------------------------- constants in the source
+#
+# The source is a template over the topology: W and K come from the build's
+# -DSP_W / -DSP_K (cuda_traverse.topology_flags), what depends on W alone
+# from a specialisation of Width<W>.  Each constant is resolved here as the
+# compiler would at each topology the chip checks.
+
+TOPOLOGIES = [(8, 12), (16, 12), (8, 24)]
+
 
 @pytest.fixture(scope="module")
 def source():
@@ -147,38 +201,136 @@ def source():
 
 
 def _constant(source, name):
-    m = re.search(rf"constexpr\s+\w+\s+{name}\s*=\s*([^;]+);", source)
+    """The initialiser of a constexpr at namespace scope (no indentation)."""
+    m = re.search(rf"^constexpr\s+\w+\s+{name}\s*=\s*([^;]+);", source, re.M)
     assert m, f"constexpr {name} not found in traverse.cu"
     return m.group(1).strip()
 
 
+def _width_table(source, w):
+    """The members of ``template <> struct Width<w>``."""
+    m = re.search(rf"template\s*<>\s*struct\s+Width<{w}>\s*\{{(.*?)\n\}};",
+                  source, re.S)
+    assert m, f"no Width<{w}> in traverse.cu"
+    body = m.group(1)
+    table = {name: int(v) for name, v in re.findall(
+        r"static\s+constexpr\s+int\s+(\w+)\s*=\s*(\d+);", body)}
+    table["Word"] = re.search(r"using\s+Word\s*=\s*([\w ]+);", body).group(1).strip()
+    macro = re.search(r"=\s*(SP_SORT_PARTNERS_\d+);", body).group(1)
+    words = re.search(rf"#define\s+{macro}\s*\{{([^}}]*)\}}", source)
+    assert words, f"{macro} not found in traverse.cu"
+    table["words"] = tuple(int(x, 16) for x in re.findall(r"0x[0-9a-fA-F]+",
+                                                          words.group(1)))
+    return table
+
+
+def _resolve(source, name, w, k):
+    """A namespace-scope constant of the source built with
+    topology_flags(w, k)."""
+    defines = dict(f[2:].split("=") for f in ct.topology_flags(w, k))
+    expr = _constant(source, name)
+    if expr in defines:
+        return int(defines[expr])
+    if expr == "W":
+        return _resolve(source, "W", w, k)
+    m = re.fullmatch(r"Width<W>::(\w+)", expr)
+    if m:
+        return _width_table(source, w)[m.group(1)]
+    return int(expr)
+
+
 @pytest.mark.parametrize("name,expected", [
-    ("W", lambda: bvh.WIDTH), ("K", lambda: bvh.LEAF_SIZE),
-    ("ROW", lambda: bvh.RECORD_WIDTH), ("STACK", lambda: ct.STACK_DEPTH),
-    ("SORT_STAGES", lambda: len(ct.sort_stages(bvh.WIDTH)))])
+    ("W", lambda w, k: w), ("K", lambda w, k: k),
+    ("ROW", lambda w, k: bvh.RECORD_WIDTH),
+    ("STACK", lambda w, k: ct.kernel_stack(w)),
+    ("SORT_STAGES", lambda w, k: len(ct.sort_stages(w)))])
 def test_source_constants_are_the_packages(source, name, expected):
-    assert int(_constant(source, name)) == expected()
+    for w, k in TOPOLOGIES:
+        if name == "SORT_STAGES":
+            got = _width_table(source, w)["SORT_STAGES"]
+        else:
+            got = _resolve(source, name, w, k)
+        assert got == expected(w, k), (name, w, k)
+    # and at this process's own topology
+    assert ct.topology_flags() == [f"-DSP_W={bvh.WIDTH}", f"-DSP_K={bvh.LEAF_SIZE}"]
 
 
 def test_source_lanes_per_ray(source):
-    assert int(_constant(source, "G")) == ct.LANES_PER_RAY == bvh.WIDTH
+    assert ct.LANES_PER_RAY == bvh.WIDTH
+    for w, k in TOPOLOGIES:
+        assert _resolve(source, "G", w, k) == w
     assert "SP_LANES_PER_RAY" not in source      # one design, no build switch
     block = int(_constant(source, "BLOCK"))
-    assert block % 32 == 0 and 32 % ct.LANES_PER_RAY == 0
+    for w in ct.WIDTHS:
+        assert block % 32 == 0 and 32 % w == 0
     assert float(_constant(source, "NEG_BIG").rstrip("f")) == ct._NEG_BIG
 
 
 def test_source_stage_table_is_sort_stage_partners(source):
-    m = re.search(r"#define\s+SP_SORT_PARTNERS\s*\{([^}]*)\}", source)
-    assert m, "SP_SORT_PARTNERS not found in traverse.cu"
-    words = tuple(int(w, 16) for w in re.findall(r"0x[0-9a-fA-F]+", m.group(1)))
-    assert words == ct.sort_stage_partners(8)
+    for w, bits in ((8, 32), (16, 64)):
+        table = _width_table(source, w)
+        assert table["words"] == ct.sort_stage_partners(w)
+        assert len(table["words"]) == table["SORT_STAGES"]
+        assert table["Word"] == {32: "unsigned int", 64: "unsigned long long"}[bits]
+        assert all(word < 1 << bits for word in table["words"])
 
 
 def test_source_has_no_per_thread_stack(source):
     assert re.search(r"__shared__\s+int\s+stacks\[RAYS\]\[STACK\]", source)
     assert not re.search(r"\bint\s+stack\[STACK\]", source)
     assert "0xffffffff" not in source.lower()   # group masks only
+
+
+def test_source_covers_the_wrappers_topologies(source):
+    """The source's static_asserts admit exactly cuda_traverse's WIDTHS and
+    LEAF_SIZES, and it refuses a build without the topology."""
+    m = re.search(r"static_assert\(([^,]*\bW\b[^,]*),", source)
+    widths = tuple(int(x) for x in re.findall(r"W\s*==\s*(\d+)", m.group(1)))
+    assert widths == ct.WIDTHS
+    lo, hi = re.search(r"static_assert\(K\s*>=\s*(\d+)\s*&&\s*K\s*<=\s*(\d+)",
+                       source).groups()
+    assert range(int(lo), int(hi) + 1) == ct.LEAF_SIZES
+    assert re.search(r"#if\s+!defined\(SP_W\)\s*\|\|\s*!defined\(SP_K\)\s*\n#error",
+                     source)
+    assert set(ct.WIDTHS) == {int(w) for w in re.findall(r"struct\s+Width<(\d+)>", source)}
+
+
+def test_each_topology_has_its_own_library():
+    paths = {ct.library_path(w, k) for w in ct.WIDTHS for k in (12, 24)}
+    assert len(paths) == 4
+    assert os.path.basename(ct.library_path(16, 12)) == "libsp_traverse_w16_k12.so"
+    assert ct.library_path() == ct.library_path(bvh.WIDTH, bvh.LEAF_SIZE)
+    assert os.path.dirname(ct.library_path()) == ct.BUILD_DIR
+
+
+def test_stack_capacities_are_the_jax_packages():
+    """Plain versions: the XLA traversal's STACK_DEPTH (64 at W <= 8, else
+    128); kernels and the pack-time check: min(96, that), the packet
+    kernels' MAX_STACK (the JAX package's own values at each width are held
+    in the topology test files, one subprocess a width)."""
+    assert [ct.stack_depth(w) for w in ct.WIDTHS] == [64, 128]
+    assert [ct.kernel_stack(w) for w in ct.WIDTHS] == [64, 96]
+    assert bvh._stack_limit() == ct.KERNEL_STACK == ct.kernel_stack(bvh.WIDTH)
+    for w in ct.WIDTHS:
+        # a tree of the deepest depth the kernels' stack holds fits, one
+        # level deeper does not
+        depth = (ct.kernel_stack(w) - 1) // (w - 1)
+        assert depth * (w - 1) + 1 <= ct.kernel_stack(w) < (depth + 1) * (w - 1) + 1
+
+
+@pytest.mark.parametrize("knob,value", [("WIDTH", 4), ("WIDTH", 32),
+                                        ("LEAF_SIZE", 0), ("LEAF_SIZE", 33)])
+def test_unsupported_topology_raises(scene, monkeypatch, knob, value):
+    """A topology outside the template raises NotImplementedError, and the
+    plain versions on the CPU refuse it as the kernels would on the card."""
+    args = _rays(16, 12)
+    monkeypatch.setattr(ct, knob, value)
+    w, k = ct.WIDTH, ct.LEAF_SIZE
+    for fn in (ct.closest, ct.anyhit, ct.closest_plain, ct.anyhit_plain):
+        with pytest.raises(NotImplementedError, match="traversal covers"):
+            fn(scene.bvh.records, *args)
+    with pytest.raises(NotImplementedError):
+        ct.topology_flags(w, k)
 
 
 # -------------------------------------------------- the group reduction
@@ -207,22 +359,37 @@ def _group_first_min(tv, lanes=ct.LANES_PER_RAY):
     return my_t[:, 0], my_k[:, 0]
 
 
-@pytest.mark.parametrize("kind", ["random", "ties", "sparse", "all_invalid"])
-def test_group_reduction_picks_what_argmin_picks(kind):
+def _check_group_reduction(kind, lanes, k):
     rs = np.random.RandomState(11)
     n = 3000
-    t = rs.rand(n, bvh.LEAF_SIZE).astype(np.float32)
+    t = rs.rand(n, k).astype(np.float32)
     if kind == "ties":
         t = np.round(t * 2) / 2
-    valid = rs.rand(n, bvh.LEAF_SIZE) < {"random": 0.7, "ties": 0.7,
-                                         "sparse": 0.1, "all_invalid": 0.0}[kind]
+    valid = rs.rand(n, k) < {"random": 0.7, "ties": 0.7,
+                             "sparse": 0.1, "all_invalid": 0.0}[kind]
     tv = torch.where(torch.from_numpy(valid), torch.from_numpy(t), INF)
-    win_t, win_k = _group_first_min(tv)
+    win_t, win_k = _group_first_min(tv, lanes)
     j = tv.argmin(dim=1)                       # closest_plain's "first min"
     hit = torch.from_numpy(valid).any(dim=1)
     assert torch.equal(win_t, tv.gather(1, j[:, None])[:, 0])
     assert torch.equal(win_k[hit], j[hit])
     assert bool(torch.isinf(win_t[~hit]).all())   # no candidate: never taken
+
+
+REDUCTION_KINDS = ["random", "ties", "sparse", "all_invalid"]
+
+
+@pytest.mark.parametrize("kind", REDUCTION_KINDS)
+def test_group_reduction_picks_what_argmin_picks(kind):
+    _check_group_reduction(kind, ct.LANES_PER_RAY, bvh.LEAF_SIZE)
+
+
+@pytest.mark.parametrize("kind", REDUCTION_KINDS)
+@pytest.mark.parametrize("lanes,k", [(16, 12), (8, 24), (16, 24), (8, 13)])
+def test_group_reduction_at_other_topologies(kind, lanes, k):
+    """16 lanes over 12 slots (lanes 12-15 own none), 3 slots a lane over a
+    two-row leaf, and a K that does not fill its last slot round."""
+    _check_group_reduction(kind, lanes, k)
 
 
 # ------------------------------------------------------ per-ray counts

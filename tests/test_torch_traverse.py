@@ -206,6 +206,21 @@ def test_batcher_network_is_the_jax_packages():
     assert ct.STACK_DEPTH == JTr.STACK_DEPTH
 
 
+def test_stack_limit_is_the_jax_packages():
+    """At this process's topology (the topology test files run this file at
+    W=16 and at K=24): the pack-time stack cap that a tree must fit, the
+    plain versions' stack and the sorting network are the JAX package's; a
+    table the JAX package accepts is accepted, one it refuses is refused."""
+    from simplepath_tpu.scene import bvh as JB
+    from simplepath_tpu_torch.scene import bvh as TB
+    assert (TB.WIDTH, TB.LEAF_SIZE, TB.LEAF_ROWS) == (JB.WIDTH, JB.LEAF_SIZE,
+                                                      JB.LEAF_ROWS)
+    assert TB._stack_limit() == JB._stack_limit() == (64 if TB.WIDTH <= 8 else 96)
+    assert ct.KERNEL_STACK == TB._stack_limit()
+    assert ct.STACK_DEPTH == JTr.STACK_DEPTH
+    assert ct.batcher_pairs(TB.WIDTH) == JTr.batcher_pairs(TB.WIDTH)
+
+
 # ------------------------------------------------- scene-level queries
 
 def _check_hit(out, ref):

@@ -10,7 +10,9 @@ wavefronts of bounces 0, 2 and 5 of one rendered chunk of the bench scene).
 A variant is ``name=source[:nvcc flag[,flag...]]``: any source with the C
 interface of csrc/traverse.cu (``sp_closest`` / ``sp_anyhit``), so an earlier
 revision of the file can stand beside the present one.  Every variant is
-built with the package's nvcc flags plus its own into
+built with the package's nvcc flags at this process's BVH topology
+(``-DSP_W`` / ``-DSP_K``, set by SIMPLEPATH_BVH_WIDTH / _LEAF; a source
+without the parameters ignores them) plus its own into
 ``simplepath_tpu_torch/build/variants/``, held against the plain PyTorch
 versions on every ray set (exact ``valid`` / ``idx`` / ``occluded``, equal
 t / beta / gamma), and timed with CUDA events in rounds that run the
