@@ -17,6 +17,17 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            wavefronts of bounces 0, 2 and 5 of one rendered 65,536-ray chunk:
            exact valid/idx/occluded, t rtol 1e-5, beta/gamma rtol 1e-4;
            times, visits a ray, lane-step shares, bytes the visits read
+  probes   the three measuring kernels (render/cuda_probes.py), each against
+           its plain version: sp_closest_count on the five ray sets (counts
+           and n_push histograms exactly equal, hits bit-equal to
+           sp_closest's, device ms in turns with sp_closest's: the cost of
+           counting; visits a ray and a warp, the lock-step share, the n_push
+           shares); sp_row_chase at 1, 2, 4 and 8 chains of 20,000 hops (refs
+           equal, ns a hop); sp_visit_body in its four modes on the bench's
+           table and on two tables whose rows the fixed ray crosses (output
+           and each lane's keys, refs and slots after 1 and 3 bodies
+           NaN-equal; ns a body at 100,000 bodies on one warp, on a launch
+           that fills every SM and at sp_closest's occupancy)
   render   the flagship (iterative_rrnee) full frame at --spp samples;
            launch counts per kernel
   paths    the full frame at 1 spp with each other traced integrator, and
@@ -75,7 +86,8 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            within max abs diff 1e-4 of the default topology's frame, its
            seconds timed in turns with the default topology's (processes in
            the order default, W=16, K=24, K=24, W=16, default) and its
-           launches of each kernel
+           launches of each kernel; the visit-body probe's four modes at that
+           topology (the probes phase's readings)
 
 Each phase's seconds follow it on a line of their own, with what the host
 took to enqueue one tiny kernel, and the live Python objects, just before
@@ -106,8 +118,8 @@ sys.path.insert(0, HERE)
 SCENE = os.path.join(HERE, "scenes", "bunny_bench.sp")
 OUT_DIR = os.path.join(HERE, "chip_smoke_out")
 IBL_TEST_SCENE = os.path.join(HERE, "tests", "scenes", "g_ibl_rrnee.sp")
-PHASES = ("device", "build", "kernels", "render", "paths", "parity", "cli",
-          "train", "geom", "ranks", "topology")
+PHASES = ("device", "build", "kernels", "probes", "render", "paths", "parity",
+          "cli", "train", "geom", "ranks", "topology")
 # the traced integrators besides the flagship, and whether each has NEE
 # (next-event estimation: shadow rays through sp_anyhit)
 PATHS = {"direct_lighting": True, "brute_force": False,
@@ -125,7 +137,19 @@ FP32_FLOPS = 67e12
 FLOPS_TRIANGLE_TEST = 53
 BOUNCES = (0, 2, 5)
 TPU_KERNEL = {"closest": "simplepath_tpu/render/pallas_traverse.py:466",
-              "anyhit": "simplepath_tpu/render/pallas_traverse.py:503"}
+              "anyhit": "simplepath_tpu/render/pallas_traverse.py:503",
+              "closest_count": "tools/prof_visits.py:88, tools/prof_npush.py:97",
+              "row_chase": "tools/prof_visits.py:127, tools/prof_dma_chains.py:42",
+              "visit_body": "tools/prof_visit_vpu.py:97"}
+PROBES = ("closest_count", "row_chase", "visit_body")
+# the TPU probes' sizes: hops of a chase, bodies of a visit-body run
+PROBE_HOPS = 20_000
+PROBE_BODIES = 100_000
+# bodies where the visit body is held against its plain version, and where
+# the two are timed side by side (the plain version loops in Python)
+CHECK_BODIES = 3
+PLAIN_BODIES = 1_000
+BODY_SEED = 1.0             # rows 0 and 1, the TPU probe's first call
 
 
 def visit_costs() -> tuple:
@@ -248,6 +272,19 @@ def incoherent_rays(scene, n: int = 65499, seed: int = 7):
     t_max[rs.rand(n) < 0.1] = -np.inf
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(scene.device)
     return to(origin), to(direction), to(t_min), to(t_max)
+
+
+def uniform_rays(n: int, seed: int, device):
+    """The TPU probes' incoherent rays (tools/prof_visits.py:151-154), made
+    with numpy from a seed: origins uniform in [-3, 3]^3, directions uniform
+    on the sphere; t_min 1e-3, t_max inf."""
+    rs = np.random.RandomState(seed)
+    origin = rs.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    direction = d / np.linalg.norm(d, axis=1, keepdims=True)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    return (to(origin), to(direction), to(np.full(n, 1e-3)),
+            to(np.full(n, np.inf)))
 
 
 def bounce_rays(scene, rows: tuple = (480, 544)) -> dict:
@@ -382,6 +419,7 @@ def compare_case(kernel: str, case: str, records, rays) -> dict:
     dead = t_max < t_min
     visits = stats.pop("ray_internal_visits") + stats.pop("ray_leaf_visits")
     visits = torch.where(dead, 0, visits)
+    stats.pop("ray_internal_visits_by_push")
     rays_a_warp = 32 // ct.LANES_PER_RAY
     res.update(dead_rays=int(dead.sum()),
                visits_per_ray_mean=float(visits.float().mean()),
@@ -390,12 +428,19 @@ def compare_case(kernel: str, case: str, records, rays) -> dict:
                **{f"lane_step_share_{rays_a_warp}_rays_a_warp":
                   lane_step_share(visits, rays_a_warp)})
 
-    # The least this run's rays ask of the card.  Bytes: each table row that
-    # a live ray visits is read once, at what a visit of its kind reads, the
-    # rays once, the results written once.  Operations: every visit's
-    # arithmetic.  The root pops of dead rays count in neither.
+    work = traversal_work(stats, n, res["dead_rays"], out_bytes)
+    res.update(stats, **work)
+    return res
+
+
+def traversal_work(stats: dict, n: int, dead_rays: int, out_bytes: int) -> dict:
+    """The least this run's rays ask of the card, from a plain traversal's
+    ``stats`` (the row masks are taken out of it).  Bytes: each table row
+    that a live ray visits is read once, at what a visit of its kind reads,
+    the rays once, the results written once.  Operations: every visit's
+    arithmetic.  The root pops of dead rays count in neither."""
     internal_ops, internal_bytes, leaf_bytes = visit_costs()
-    internal_visits = stats["internal_visits"] - res["dead_rays"]
+    internal_visits = stats["internal_visits"] - dead_rays
     distinct_internal = int(stats.pop("internal_rows_visited").sum())
     distinct_leaf = int(stats.pop("leaf_rows_visited").sum())
     table_bytes = distinct_internal * internal_bytes + distinct_leaf * leaf_bytes
@@ -404,27 +449,32 @@ def compare_case(kernel: str, case: str, records, rays) -> dict:
              + stats["triangle_tests"] * FLOPS_TRIANGLE_TEST)
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS * 1e3
-    res.update(stats, rows_visited=internal_visits + stats["leaf_visits"],
-               distinct_internal_rows=distinct_internal,
-               distinct_leaf_rows=distinct_leaf, table_bytes=table_bytes,
-               row_bytes=internal_visits * internal_bytes
-               + stats["leaf_visits"] * leaf_bytes,
-               min_bytes=in_bytes + out_bytes, flops=flops,
-               bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-    return res
+    return dict(rows_visited=internal_visits + stats["leaf_visits"],
+                distinct_internal_rows=distinct_internal,
+                distinct_leaf_rows=distinct_leaf, table_bytes=table_bytes,
+                row_bytes=internal_visits * internal_bytes
+                + stats["leaf_visits"] * leaf_bytes,
+                min_bytes=in_bytes + out_bytes, flops=flops,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def phase_kernels(scene) -> dict:
+def kernel_ray_sets(scene) -> dict:
+    """Each kernel's five ray sets: {"closest": {case: rays}, "anyhit": ...}."""
+    shared = {"primary": primary_rays(scene),
+              "incoherent": incoherent_rays(scene)}
+    bounces = bounce_rays(scene)
+    return {kernel: {**shared, **bounces[kernel]} for kernel in bounces}
+
+
+def phase_kernels(scene, sets: dict) -> dict:
+    """Both kernels on their ray sets (kernel_ray_sets)."""
     dev = scene.device
     records = scene.bvh.records
     l2_rate = l2_read_rate(dev)
-    ray_sets = {"primary": primary_rays(scene),
-                "incoherent": incoherent_rays(scene)}
-    bounces = bounce_rays(scene)
     results = {}
     for kernel in ("closest", "anyhit"):
-        for case, rays in {**ray_sets, **bounces[kernel]}.items():
+        for case, rays in sets[kernel].items():
             res = compare_case(kernel, case, records, rays)
             res["l2_read_GBps_measured"] = l2_rate / 1e9
             res["row_traffic_ms"] = res["row_bytes"] / l2_rate * 1e3
@@ -435,23 +485,256 @@ def phase_kernels(scene) -> dict:
     return results
 
 
+# --------------------------------------------------------------- probes
+
+def visit_readings(internal, leaf, by_push, lanes_per_ray: int) -> dict:
+    """What the counting kernel reads off the traversal: visits a ray (a
+    ray with an empty interval counts 0, as in compare_case), visits a warp
+    (the most of its 32 / lanes_per_ray rays: a warp runs as long as its
+    slowest ray), the lock-step share, and the shares of internal visits by
+    n_push (0, 1, 2, >= 3)."""
+    visits = (internal + leaf).to(torch.int64)
+    rays_a_warp = 32 // lanes_per_ray
+    pad = -visits.numel() % rays_a_warp
+    per_warp = torch.nn.functional.pad(visits, (0, pad)).reshape(
+        -1, rays_a_warp).max(dim=1).values
+    pushes = by_push.to(torch.int64).sum(dim=0)
+    total = int(pushes.sum())
+    return dict(rays_a_warp=rays_a_warp,
+                visits_per_ray_mean=float(visits.float().mean()),
+                visits_per_ray_max=int(visits.max()),
+                internal_per_ray_mean=float(internal.float().mean()),
+                leaf_per_ray_mean=float(leaf.float().mean()),
+                visits_per_warp_mean=float(per_warp.float().mean()),
+                visits_per_warp_max=int(per_warp.max()),
+                lock_step_share=lane_step_share(visits, rays_a_warp),
+                internal_visits=total,
+                n_push_shares=[int(x) / total if total else 0.0
+                               for x in pushes.tolist()])
+
+
+def probe_counts(records, case: str, rays) -> dict:
+    """sp_closest_count on one ray set: counts equal to its plain version's,
+    hits bit-equal to sp_closest's; device ms in turns with sp_closest's."""
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+    ro, rd, t_min, t_max = rays
+    n = ro.shape[0]
+    out = cp.closest_count(records, *rays)
+    hits = ct.closest(records, *rays)
+    torch.cuda.synchronize()
+    stats: dict = {}
+    ref = cp.closest_count_plain(records, *rays, stats=stats)
+    names = ("t", "idx", "beta", "gamma", "valid", "internal", "leaf", "by_push")
+    bad = {f"{k}_vs_sp_closest": int((a != b).sum())
+           for k, a, b in zip(names, out, hits) if not torch.equal(a, b)}
+    bad.update({f"{k}_vs_plain": int((a != b).sum())
+                for k, a, b in zip(names[4:], out[4:], ref[4:])
+                if not torch.equal(a, b)})
+    h = out[4]
+    if not torch.equal(out[1][h], ref[1][h]):
+        bad["idx_vs_plain"] = int((out[1][h] != ref[1][h]).sum())
+    errs = [(a[h] - b[h]).abs() for a, b in zip(
+        (out[0], out[2], out[3]), (ref[0], ref[2], ref[3]))]
+    max_err = float(torch.cat(errs).max()) if bool(h.any()) else 0.0
+    if not torch.allclose(out[0][h], ref[0][h], rtol=1e-5, atol=1e-6):
+        bad["t_vs_plain"] = max_err
+    if bad:
+        raise AssertionError(f"sp_closest_count disagrees on {case} rays: {bad}")
+
+    turns = {"closest": [], "closest_count": []}
+    launch = {"closest": lambda: ct.closest(records, *rays),
+              "closest_count": lambda: cp.closest_count(records, *rays)}
+    for r in range(4):                   # A B B A B A A B
+        for name in (("closest", "closest_count") if r in (0, 3)
+                     else ("closest_count", "closest")):
+            turns[name].append(time_cuda(launch[name], 50))
+    plain_ms = time_cuda(lambda: cp.closest_count_plain(records, *rays), 1,
+                         run_ahead=False)
+    dead = t_max < t_min
+    work = traversal_work(stats, n, int(dead.sum()), n * (17 + 24))
+    kernel_ms, closest_ms = min(turns["closest_count"]), min(turns["closest"])
+    return dict(kernel="closest_count", case=case, n=n,
+                dead_rays=int(dead.sum()), hits=int(h.sum()),
+                max_abs_err=max_err, kernel_ms=kernel_ms,
+                closest_ms_in_turns=closest_ms,
+                kernel_ms_turns=turns["closest_count"],
+                closest_ms_turns=turns["closest"],
+                counting_cost=kernel_ms / closest_ms - 1.0, plain_ms=plain_ms,
+                bound_ms=work["bound_ms"], bound_by=work["bound_by"],
+                **visit_readings(*out[5:], ct.LANES_PER_RAY))
+
+
+def probe_chase(records, hops: int = PROBE_HOPS) -> list:
+    """sp_row_chase at each chain count: refs equal to the plain version's,
+    ns a hop.  Bound: the distinct rows' bytes (a copy is LEAF_ROWS rows)
+    and one compare a hop; latency, not either, sets its time."""
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    from simplepath_tpu_torch.scene.bvh import LEAF_ROWS
+    ref, visited = cp.row_chase_plain(records, max(cp.CHAINS), hops,
+                                      visited=True)
+    plain_ms = time_cuda(lambda: cp.row_chase_plain(records, 1, hops), 1,
+                         run_ahead=False)
+    out = []
+    for chains in cp.CHAINS:
+        got = cp.row_chase(records, chains, hops)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref[:chains]):
+            raise AssertionError(f"sp_row_chase at {chains} chains gives "
+                                 f"{got.tolist()}, its plain version "
+                                 f"{ref[:chains].tolist()}")
+        ms = time_cuda(lambda: cp.row_chase(records, chains, hops), 5)
+        rows = int(torch.unique(visited[:, :chains]).numel())
+        bytes_ms = (rows * LEAF_ROWS * 512 + 4 * chains) / HBM_BYTES_PER_S * 1e3
+        ops_ms = hops * chains / FP32_FLOPS * 1e3
+        out.append(dict(kernel="row_chase", chains=chains, hops=hops,
+                        refs=got.tolist(), distinct_rows=rows, kernel_ms=ms,
+                        ns_per_hop=ms * 1e6 / hops,
+                        ns_per_hop_per_chain=ms * 1e6 / (hops * chains),
+                        plain_ms=plain_ms if chains == 1 else None,
+                        bound_ms=max(bytes_ms, ops_ms),
+                        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                        max_abs_err=0.0))
+    return out
+
+
+def body_ops(mode: str) -> int:
+    """Operations of one visit body of ``mode`` for one ray, counted from
+    csrc/traverse.cu: a slab test is 6 sub, 6 mul, 12 min/max and 3
+    compares (27; 24 without the compares), the network its pairs, a
+    triangle test FLOPS_TRIANGLE_TEST."""
+    from simplepath_tpu_torch.render.cuda_traverse import batcher_pairs
+    from simplepath_tpu_torch.scene.bvh import LEAF_SIZE, WIDTH
+    pairs = len(batcher_pairs(WIDTH))
+    return {"internal": 27 * WIDTH + pairs, "internal_norel": 24 * WIDTH,
+            "sort_only": pairs, "leaf": FLOPS_TRIANGLE_TEST * LEAF_SIZE}[mode]
+
+
+def body_tables(records) -> dict:
+    """The tables the visit body runs on, each with its seed: the bench's at
+    BODY_SEED (the fixed ray misses every row of the bench's table: each
+    child of row 0, and row 1 read as a leaf), and cuda_probes.crossed_table
+    without and with a tie, whose rows the ray crosses."""
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    dev = records.device
+    return {"bench": (records, BODY_SEED),
+            "crossed": (cp.crossed_table(tie=False, device=dev), 1.0),
+            "crossed_tie": (cp.crossed_table(tie=True, device=dev), 1.0)}
+
+
+def nan_equal(a, b) -> bool:
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def check_visit_body(records, seed: float, mode: str, n: int, table: str) -> str:
+    """sp_visit_body's output, and its check launch's output and lanes (what
+    each lane holds after the last body: keys, refs, near / far, slots),
+    after 1 and CHECK_BODIES bodies, NaN-equal to the plain version's;
+    returns the output."""
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    for bodies in (1, CHECK_BODIES):
+        out = cp.visit_body(records, seed, mode, bodies, n)
+        got, lanes = cp.visit_body_lanes(records, seed, mode, bodies, n)
+        torch.cuda.synchronize()
+        ref, ref_lanes = cp.visit_body_lanes_plain(records, seed, mode,
+                                                   bodies, n)
+        for what, a, b in (("output", out, ref), ("check output", got, ref),
+                           ("lanes", lanes, ref_lanes)):
+            if not nan_equal(a, b):
+                raise AssertionError(
+                    f"sp_visit_body {mode} on the {table} table, {n} rays, "
+                    f"{bodies} bodies: its {what} {a[0].tolist()}, the plain "
+                    f"version's {b[0].tolist()}")
+    return str(float(out[0]))
+
+
+def probe_visit_body(records, bodies: int = PROBE_BODIES) -> list:
+    """sp_visit_body in each mode on each of body_tables, checked against
+    its plain version (check_visit_body) in three launch shapes: one warp
+    (32 / W rays: the latency of a body), one full wave at the body's own
+    occupancy (the throughput of bodies) and one at sp_closest's occupancy
+    where the body's allows it.  ns a body at ``bodies`` on the bench's and
+    the tieless crossed table; the plain version timed on the bench's full
+    wave at PLAIN_BODIES."""
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+    sms = torch.cuda.get_device_properties(records.device).multi_processor_count
+    rays_a_block = 128 // ct.LANES_PER_RAY
+    traversal_blocks = cp.closest_blocks_per_sm()
+    out = []
+    for table, (rec, seed) in body_tables(records).items():
+        for mode in cp.BODY_MODES:
+            blocks = cp.body_blocks_per_sm(mode)
+            shapes = {"one_warp": 32 // ct.LANES_PER_RAY,
+                      "every_sm": sms * blocks * rays_a_block,
+                      "traversal_occupancy": sms * rays_a_block
+                      * min(blocks, traversal_blocks)}
+            for shape, n in shapes.items():
+                output = check_visit_body(rec, seed, mode, n, table)
+                if table == "crossed_tie":      # checked only
+                    continue
+                ms = time_cuda(lambda: cp.visit_body(rec, seed, mode, bodies,
+                                                     n), 3)
+                res = dict(kernel="visit_body", table=table, mode=mode,
+                           shape=shape, rays=n, blocks_per_sm=blocks,
+                           closest_blocks_per_sm=traversal_blocks,
+                           bodies=bodies, output=output, kernel_ms=ms,
+                           ns_per_body=ms * 1e6 / bodies,
+                           ns_per_ray_body=ms * 1e6 / (bodies * n),
+                           bodies_per_s=bodies * n / (ms * 1e-3),
+                           ops_per_body=body_ops(mode),
+                           bound_ms=bodies * n * body_ops(mode) / FP32_FLOPS * 1e3,
+                           bound_by="operations", max_abs_err=0.0)
+                if table == "bench" and shape == "every_sm":
+                    res["kernel_ms_at_plain_bodies"] = time_cuda(
+                        lambda: cp.visit_body(rec, seed, mode, PLAIN_BODIES,
+                                              n), 5)
+                    res["plain_ms_at_plain_bodies"] = time_cuda(
+                        lambda: cp.visit_body_plain(rec, seed, mode,
+                                                    PLAIN_BODIES, n),
+                        1, run_ahead=False)
+                    res["bound_ms_at_plain_bodies"] = (
+                        res["bound_ms"] * PLAIN_BODIES / bodies)
+                out.append(res)
+    return out
+
+
+def phase_probes(scene, sets: dict) -> dict:
+    """The three measuring kernels against their plain versions, with their
+    readings (the counting kernel on sp_closest's ray sets); their launches
+    in this phase."""
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    records = scene.bvh.records
+    cp.reset_launch_counts()
+    res = {"closest_count": [probe_counts(records, case, rays)
+                             for case, rays in sets["closest"].items()],
+           "row_chase": probe_chase(records),
+           "visit_body": probe_visit_body(records)}
+    for cases in res.values():
+        for case in cases:
+            emit("probes", **case)
+    res["launches"] = dict(cp.launch_counts)
+    emit("probes", launches_in_this_phase=res["launches"])
+    return res
+
+
 def phase_render(scene, spp: int, load_s: float, builder: str | None,
                  geometry_cache: str | None) -> tuple:
     from simplepath_tpu_torch.core.rng import prng_key
     from simplepath_tpu_torch.io.pfm import write_image
     from simplepath_tpu_torch.parallel.mesh import render_image_sharded
-    from simplepath_tpu_torch.render import cuda_traverse as ct
     from simplepath_tpu_torch.render.materials import build_rho_tables
 
     key = prng_key(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ct.reset_launch_counts()
+    reset_launches()
     t0 = time.time()
     img = render_image_sharded(scene, spp, key)
     torch.cuda.synchronize()
     render_s = time.time() - t0
-    launches = dict(ct.launch_counts)
+    launches = frame_launches("render")
 
     st = scene.static
     if tuple(img.shape) != (st.height, st.width, 3):
@@ -461,8 +744,8 @@ def phase_render(scene, spp: int, load_s: float, builder: str | None,
     mean = float(img.mean())
     if not mean > 0:
         raise AssertionError(f"render mean {mean} is not positive")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in ("closest", "anyhit"):
+        if launches[name] <= 0:
             raise AssertionError(f"the render never launched kernel {name}")
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -535,6 +818,25 @@ def with_integrator(scene, name: str):
         scene, static=dataclasses.replace(scene.static, integrator=name))
 
 
+def reset_launches() -> None:
+    """Every kernel's launch count to 0: the traversal's and the probes'."""
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+    ct.reset_launch_counts()
+    cp.reset_launch_counts()
+
+
+def frame_launches(path: str) -> dict:
+    """Every kernel's launches since reset_launches; a frame launches no
+    probe kernel."""
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+    if any(cp.launch_counts.values()):
+        raise AssertionError(f"{path}: the frame launched a probe kernel: "
+                             f"{cp.launch_counts}")
+    return {**ct.launch_counts, **cp.launch_counts}
+
+
 def check_launches(path: str, launches: dict, nee: bool) -> None:
     """sp_closest on every traced path; sp_anyhit exactly where there is
     NEE."""
@@ -558,17 +860,16 @@ def render_frame(path: str, scene, spp: int = 1, render=None) -> tuple:
     (summary, image)."""
     from simplepath_tpu_torch.core.rng import prng_key
     from simplepath_tpu_torch.parallel.mesh import render_image_sharded
-    from simplepath_tpu_torch.render import cuda_traverse as ct
 
     render = render or render_image_sharded
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ct.reset_launch_counts()
+    reset_launches()
     t0 = time.time()
     img = render(scene, spp, prng_key(0))
     torch.cuda.synchronize()
     render_s = time.time() - t0
-    launches = dict(ct.launch_counts)
+    launches = frame_launches(path)
     st = scene.static
     if tuple(img.shape) != (st.height, st.width, 3):
         raise AssertionError(f"{path}: image shape {tuple(img.shape)}")
@@ -1492,11 +1793,12 @@ def run_topology(job: str, out: str) -> None:
     res.update(load_s=time.time() - t0,
                record_rows=int(scene.bvh.records.shape[0]))
     if job == "full":
-        res["kernels"] = list(phase_kernels(scene).values())
+        res["kernels"] = list(phase_kernels(scene, kernel_ray_sets(scene)).values())
         res["parity"] = parity_case("iterative_rrnee", scene)
         if res["parity"]["max_abs_diff"] != 0.0:
             raise AssertionError("the 128x128 kernel render is not bit-equal "
                                  f"to the plain-version render: {res['parity']}")
+        res["visit_body"] = probe_visit_body(scene.bvh.records)
     res["warmup_s"] = warmup_render(scene, 1)
     summary, img = render_frame("topology_frame", scene, 1)
     check_launches("topology_frame", summary["launches"], nee=True)
@@ -1535,7 +1837,8 @@ def phase_topology() -> tuple:
     order TOPOLOGY_TURNS: everything the full job checks, and its frame
     within max abs diff 1e-4 of the default topology's
     (tests/test_geom_shard.py's gate: only equal-t ties can differ).
-    Returns ({topology: kernels results}, {topology: frame launches})."""
+    Returns ({topology: kernels results}, {topology: frame launches},
+    {topology: visit-body readings})."""
     import shutil
 
     out = os.path.join(OUT_DIR, "topology")
@@ -1552,13 +1855,15 @@ def phase_topology() -> tuple:
             frames[name] = torch.from_numpy(np.load(os.path.join(
                 out, f"{i}_{name}_{job}", "frame.npy")))
     ref = frames[DEFAULT_TOPOLOGY]
-    results, launches = {}, {}
+    results, launches, bodies = {}, {}, {}
     for name, job, res, _ in runs:
         if job != "full":
             continue
         for case in res["kernels"]:
             emit("topology", topology=name, check="kernel", **case)
         emit("topology", topology=name, check="parity", **res["parity"])
+        for case in res["visit_body"]:
+            emit("topology", topology=name, check="visit_body", **case)
         gate = held_against(frames[name], ref)
         frame_s = {n: [r["frame"]["render_s"] for n2, _, r, _ in runs if n2 == n]
                    for n in (name, DEFAULT_TOPOLOGY)}
@@ -1579,10 +1884,11 @@ def phase_topology() -> tuple:
                                  f"topology's: {gate}")
         results[name] = {(c["kernel"], c["case"]): c for c in res["kernels"]}
         launches[name] = res["frame"]["launches"]
+        bodies[name] = res["visit_body"]
     emit("topology", check="turns", order=[f"{n} {j}" for n, j, _, _ in runs],
          process_s=[s for *_, s in runs],
          frame_s=[r["frame"]["render_s"] for _, _, r, _ in runs])
-    return results, launches
+    return results, launches, bodies
 
 
 def kernel_entry(kernel: str, name: str, results: dict, launches: dict,
@@ -1610,24 +1916,83 @@ def kernel_entry(kernel: str, name: str, results: dict, launches: dict,
     }
 
 
+def probe_entry(name: str, main: dict, cases: list, launches: dict,
+                keep: tuple) -> dict:
+    """One measuring kernel: times and bound from its ``main`` case, every
+    case's readings under ``cases``; its launches in the render phase's
+    frame (it is on no render path: 0)."""
+    kernel = main["kernel"]
+    return {
+        "name": name, "route": "cuda",
+        "source": "simplepath_tpu_torch/csrc/traverse.cu",
+        "replaces": TPU_KERNEL[kernel], "launches": launches.get(kernel, 0),
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "cases": [{k: v for k, v in c.items() if k in keep} for c in cases],
+    }
+
+
+BODY_KEEP = ("table", "mode", "shape", "rays", "blocks_per_sm", "bodies",
+             "output", "kernel_ms", "ns_per_body", "ns_per_ray_body",
+             "bodies_per_s", "bound_ms", "kernel_ms_at_plain_bodies",
+             "plain_ms_at_plain_bodies")
+
+
+def visit_body_entry(name: str, bodies: list, launches: dict) -> dict:
+    """The visit body: times at PLAIN_BODIES on the bench's full wave of
+    the ``internal`` mode, where the plain version is timed too."""
+    main = next(c for c in bodies if c["table"] == "bench"
+                and c["mode"] == "internal" and c["shape"] == "every_sm")
+    return probe_entry(name, {**main, "ms": main["kernel_ms_at_plain_bodies"],
+                              "plain_ms": main["plain_ms_at_plain_bodies"],
+                              "bound_ms": main["bound_ms_at_plain_bodies"]},
+                       bodies, launches, BODY_KEEP)
+
+
+def probe_entries(probes: dict, launches: dict) -> list:
+    counts, chase = probes["closest_count"], probes["row_chase"]
+    main = next(c for c in counts if c["case"] == "primary")
+    one = next(c for c in chase if c["chains"] == 1)
+    return [
+        probe_entry("closest_count", {**main, "ms": main["kernel_ms"]}, counts,
+                    launches, ("case", "n", "kernel_ms", "closest_ms_in_turns",
+                               "counting_cost", "plain_ms", "bound_ms",
+                               "visits_per_ray_mean", "visits_per_warp_mean",
+                               "lock_step_share", "n_push_shares")),
+        probe_entry("row_chase", {**one, "ms": one["kernel_ms"]}, chase,
+                    launches, ("chains", "hops", "kernel_ms", "ns_per_hop",
+                               "distinct_rows", "bound_ms")),
+        visit_body_entry("visit_body", probes["visit_body"], launches),
+    ]
+
+
 def kernels_line(results: dict, launches: dict, by_path: dict,
-                 topologies: tuple = ({}, {})) -> dict:
+                 topologies: tuple = ({}, {}, {}), probes: dict | None = None
+                 ) -> dict:
     """The summary object: each kernel at this process's topology (named
     ``closest`` / ``anyhit``, launches from the render phase's frame) and at
     every other topology the topology phase drove (``closest_w16_k12``, ...,
-    launches from that topology's frame)."""
+    launches from that topology's frame); the three measuring kernels
+    (``closest_count``, ``row_chase``, ``visit_body``, and the visit body at
+    the other topologies, ``visit_body_w16_k12``, ...)."""
     from simplepath_tpu_torch.scene.bvh import LEAF_SIZE, WIDTH
     entries = []
     if results:
         entries += [kernel_entry(k, k, results, launches, WIDTH, LEAF_SIZE)
                     for k in ("closest", "anyhit")]
-    topo_results, topo_launches = topologies
+    if probes:
+        entries += probe_entries(probes, launches)
+    topo_results, topo_launches, topo_bodies = topologies
     for topo, res in topo_results.items():
         knobs = TOPOLOGIES[topo]
         entries += [kernel_entry(k, f"{k}_{topo}", res, topo_launches[topo],
                                  int(knobs["SIMPLEPATH_BVH_WIDTH"]),
                                  int(knobs["SIMPLEPATH_BVH_LEAF"]))
                     for k in ("closest", "anyhit")]
+        entries.append(visit_body_entry(f"visit_body_{topo}", topo_bodies[topo],
+                                        topo_launches[topo]))
     return {"kernels": entries, "launches_by_path": by_path}
 
 
@@ -1697,12 +2062,16 @@ def run(args, phases, progress: dict) -> int:
     load_s = time.time() - t0
     geometry_cache = cache.LAST_HIT     # None: built now (and cached)
 
-    results, by_path = {}, {}
+    results, by_path, probes = {}, {}, {}
     ibl = None
     if "paths" in phases or "parity" in phases:
         ibl = timed("ibl_scene", ibl_bench_scene)
+    if "kernels" in phases or "probes" in phases:
+        sets = timed("ray_sets", kernel_ray_sets, scene)
     if "kernels" in phases:
-        results = timed("kernels", phase_kernels, scene)
+        results = timed("kernels", phase_kernels, scene, sets)
+    if "probes" in phases:
+        probes = timed("probes", phase_probes, scene, sets)
     render_img = None
     if "render" in phases:
         by_path["iterative_rrnee"], render_img = timed(
@@ -1725,15 +2094,15 @@ def run(args, phases, progress: dict) -> int:
         del render_img
     if "ranks" in phases:
         by_path.update(timed("ranks", phase_ranks, scene))
-    topologies = ({}, {})
+    topologies = ({}, {}, {})
     if "topology" in phases:
         topologies = timed("topology", phase_topology)
         by_path.update({f"topology_{t}": n for t, n in topologies[1].items()})
 
-    if results or topologies[0]:
+    if results or probes or topologies[0]:
         print(json.dumps(kernels_line(
-            results, by_path.get("iterative_rrnee", {}), by_path, topologies)),
-            flush=True)
+            results, by_path.get("iterative_rrnee", {}), by_path, topologies,
+            probes)), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,13 @@
 // Replaces the two Pallas TPU kernels of the JAX package,
 //   sp_closest  <-  simplepath_tpu/render/pallas_traverse.py::packet_closest
 //   sp_anyhit   <-  simplepath_tpu/render/pallas_traverse.py::packet_anyhit
+// and the five Pallas kernels of the tools/ probes, as three measuring
+// kernels (their wrappers: render/cuda_probes.py; notes at each kernel):
+//   sp_closest_count <- tools/prof_visits.py::counting_closest and
+//                       tools/prof_npush.py::hist_closest
+//   sp_row_chase     <- tools/prof_visits.py::dma_chase and
+//                       tools/prof_dma_chains.py::chase
+//   sp_visit_body    <- tools/prof_visit_vpu.py::make_kernel
 // and computes, ray for ray, what the JAX package's per-ray formulation
 // (render/traverse.py::_bvh_closest / _bvh_any) computes: same visit order,
 // same slab and Shirley arithmetic, same tie rules.  The plain PyTorch
@@ -73,6 +80,11 @@
 //     equal keys go through the network with the swap rule key[a] < key[b]
 //     of the sequential pair list, so they are visited in the same order.
 //
+// The visit functions take the place a row is read from as a parameter
+// (FromTable: the table in device memory through the read-only cache;
+// FromShared: a copy in shared memory, for the visit-body probe), so that
+// the probes run the traversal's own arithmetic.
+//
 // Build (done at first use by render/cuda_traverse.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //        -shared -Xcompiler -fPIC -DSP_W=8 -DSP_K=12 \
@@ -98,6 +110,7 @@ constexpr int MIN_BLOCKS = 8;    // resident blocks per SM the registers must al
 constexpr int RAYS = BLOCK / G;  // rays per block
 constexpr int TPL = (K + G - 1) / G;   // leaf slots a lane owns: triangle c + G*p
 constexpr int META = 9 * K;      // leaf floats META..META+2: base_lo, base_hi, count
+constexpr int LEAF_ROWS = (META + 3 + ROW - 1) / ROW;   // rows a leaf spans
 constexpr float NEG_BIG = -3.0e38f;
 
 static_assert(W == 8 || W == 16, "the template covers W = 8 and W = 16");
@@ -145,6 +158,7 @@ template <> struct Width<16> {
 #pragma nv_diag_default 177
 
 constexpr int STACK = Width<W>::STACK;   // per-ray stack capacity
+static_assert(STACK >= 2 * W, "a check launch of the visit body scatters 2W entries");
 
 __device__ __forceinline__ float pmin(float a, float b) {
     // NaN-propagating minimum (torch.minimum semantics) in one instruction;
@@ -185,18 +199,30 @@ __device__ __forceinline__ void sort_children(float& key, int& val, int c,
     }
 }
 
-// Slab-test the W children of an internal row against the ray, one child a
-// lane, and push the hit children far-to-near by unclamped tnear (nearest on
-// top).
-__device__ __forceinline__ void visit_internal(const float* __restrict__ row,
-                                               const Ray& r, float cur_t_max,
-                                               int c, unsigned gmask,
-                                               int* stack, int& sp) {
+// Where a visit reads its row: the table through the read-only cache, or a
+// copy of the row in shared memory.
+struct FromTable {
+    __device__ static __forceinline__ float ld(const float* p) { return __ldg(p); }
+};
+struct FromShared {
+    __device__ static __forceinline__ float ld(const float* p) { return *p; }
+};
+
+// Slab test of child c of an internal row against the ray: the child's key
+// (the ray's unclamped tnear where the child is hit, -inf where it is not)
+// and its ref; `near` / `far` are what the hit test compares (tnear clamped
+// to t_min, tfar to cur_t_max).
+template <class Mem>
+__device__ __forceinline__ float child_key(const float* __restrict__ row,
+                                           const Ray& r, float cur_t_max,
+                                           int c, int& cref, float& near,
+                                           float& far) {
     const float* col = row + c;
-    const float lox = __ldg(col), loy = __ldg(col + W), loz = __ldg(col + 2 * W);
-    const float hix = __ldg(col + 3 * W), hiy = __ldg(col + 4 * W);
-    const float hiz = __ldg(col + 5 * W);
-    const int cref = (int)__ldg(col + 6 * W);
+    const float lox = Mem::ld(col), loy = Mem::ld(col + W);
+    const float loz = Mem::ld(col + 2 * W);
+    const float hix = Mem::ld(col + 3 * W), hiy = Mem::ld(col + 4 * W);
+    const float hiz = Mem::ld(col + 5 * W);
+    cref = (int)Mem::ld(col + 6 * W);
     const float t0x = (lox - r.ox) * r.ix;
     const float t0y = (loy - r.oy) * r.iy;
     const float t0z = (loz - r.oz) * r.iz;
@@ -207,15 +233,21 @@ __device__ __forceinline__ void visit_internal(const float* __restrict__ row,
                              pmin(t0z, t1z));
     const float tfar = pmin(pmin(pmax(t0x, t1x), pmax(t0y, t1y)),
                             pmax(t0z, t1z));
-    const bool hit = (pmax(tnear, r.t_min) <= pmin(tfar, cur_t_max))
-                     && (tfar >= r.t_min) && (cref != 0);
-    float key = hit ? tnear : -INFINITY;
-    int val = cref;
-    // Where the hit children's keys all differ, descending order is one
-    // order only, and a child's place in it is the number of keys above its
-    // own: G - 1 independent shuffles instead of the network's dependent
-    // stages.  Equal keys of hit children (rare) take the order the network
-    // gives them, so the network runs then.
+    near = pmax(tnear, r.t_min);
+    far = pmin(tfar, cur_t_max);
+    const bool hit = (near <= far) && (tfar >= r.t_min) && (cref != 0);
+    return hit ? tnear : -INFINITY;
+}
+
+// The place of this lane's child among the group's hit children, far to
+// near (nearest on top of the stack).  Where the hit children's keys all
+// differ, descending order is one order only, and a child's place in it is
+// the number of keys above its own: G - 1 independent shuffles instead of
+// the network's dependent stages.  Equal keys of hit children (rare) take
+// the order the network gives them, so the network runs then, and lane j
+// holds the j-th entry.
+__device__ __forceinline__ int place_children(float& key, int& val, int c,
+                                              unsigned gmask) {
     int place = 0;
     bool eq = false;
 #pragma unroll
@@ -229,12 +261,36 @@ __device__ __forceinline__ void visit_internal(const float* __restrict__ row,
         sort_children(key, val, c, gmask);
         place = c;
     }
+    return place;
+}
+
+// Push the group's hit children at their places; returns n_push, how many
+// were hit (the popcount of the group's ballot).
+__device__ __forceinline__ int push_children(float key, int val, int place,
+                                             unsigned gmask, int* stack,
+                                             int& sp) {
     const int count = __popc(__ballot_sync(gmask, key > NEG_BIG) & gmask);
     // same overflow guard as the plain version (pack_records asserts that
     // the tree fits, so it never triggers on a packed table)
     if (sp > STACK - W) sp = STACK - W;
     if (key > NEG_BIG) stack[sp + place] = val;
     sp += count;
+    return count;
+}
+
+// Slab-test the W children of an internal row against the ray, one child a
+// lane, and push the hit children far-to-near by unclamped tnear (nearest on
+// top); returns n_push.
+template <class Mem>
+__device__ __forceinline__ int visit_internal(const float* __restrict__ row,
+                                              const Ray& r, float cur_t_max,
+                                              int c, unsigned gmask,
+                                              int* stack, int& sp) {
+    int val;
+    float near, far;
+    float key = child_key<Mem>(row, r, cur_t_max, c, val, near, far);
+    const int place = place_children(key, val, c, gmask);
+    return push_children(key, val, place, gmask, stack, sp);
 }
 
 // Shirley barycentric test of one leaf triangle (v0, e1 = v0-v1, e2 = v0-v2).
@@ -263,6 +319,55 @@ __device__ __forceinline__ bool tri_test(float v0x, float v0y, float v0z,
            && (t >= r.t_min) && (t <= cur_t_max);
 }
 
+// This lane's first minimum over its own slots of a leaf (triangles c,
+// c + G, ... in ascending order), `count` of them live.  Every slot of the
+// row is loaded and tested, whatever the count (leaves are packed full):
+// the triangle loads then do not wait for the meta load, and `k < count`
+// masks the rest.  With ANY, returns whether any slot hits.
+template <bool ANY, class Mem>
+__device__ __forceinline__ bool leaf_slots(const float* __restrict__ row,
+                                           const Ray& r, float cur_t_max,
+                                           int c, int count, float& my_t,
+                                           float& my_beta, float& my_gamma,
+                                           int& my_k) {
+    bool any_ok = false;
+#pragma unroll
+    for (int p = 0; p < TPL; ++p) {
+        const int k = c + G * p;
+        if (k < K) {
+            const float* col = row + k;
+            float t, beta, gamma;
+            const bool ok = tri_test(Mem::ld(col), Mem::ld(col + K),
+                                     Mem::ld(col + 2 * K), Mem::ld(col + 3 * K),
+                                     Mem::ld(col + 4 * K), Mem::ld(col + 5 * K),
+                                     Mem::ld(col + 6 * K), Mem::ld(col + 7 * K),
+                                     Mem::ld(col + 8 * K),
+                                     r, cur_t_max, t, beta, gamma)
+                            && (k < count);
+            if (ANY) {
+                any_ok = any_ok || ok;
+            } else if (ok && t < my_t) {
+                my_t = t; my_beta = beta; my_gamma = gamma; my_k = k;
+            }
+        }
+    }
+    return any_ok;
+}
+
+// First minimum of the group's slots: smaller t, at equal t the smaller
+// slot; afterwards every lane of the group holds it.
+__device__ __forceinline__ void group_first_min(float& win_t, int& win_k,
+                                                unsigned gmask) {
+#pragma unroll
+    for (int m = G / 2; m > 0; m >>= 1) {
+        const float other_t = __shfl_xor_sync(gmask, win_t, m, G);
+        const int other_k = __shfl_xor_sync(gmask, win_k, m, G);
+        if (other_t < win_t || (other_t == win_t && other_k < win_k)) {
+            win_t = other_t; win_k = other_k;
+        }
+    }
+}
+
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ ro,
                                         const float* __restrict__ rd,
                                         const float* __restrict__ t_min, int i) {
@@ -274,7 +379,14 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ ro,
     return r;
 }
 
-template <bool ANY>
+// COUNT (sp_closest_count): the closest-hit loop that also counts, per ray,
+// its internal visits, its leaf visits and its internal visits by n_push,
+// the number of hit children (0, 1, 2, >= 3): what the TPU probes
+// tools/prof_visits.py::counting_closest and tools/prof_npush.py::hist_closest
+// count per 1,024-ray packet, counted here in the card's unit, the ray.  Every
+// lane of a group holds the counts (n_push is the group's ballot); the
+// instances without COUNT compile to the code they compiled to before.
+template <bool ANY, bool COUNT>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 traverse_kernel(const float* __restrict__ records,
                 const float* __restrict__ ro, const float* __restrict__ rd,
@@ -282,7 +394,9 @@ traverse_kernel(const float* __restrict__ records,
                 int n,
                 float* __restrict__ out_t, int* __restrict__ out_idx,
                 float* __restrict__ out_beta, float* __restrict__ out_gamma,
-                unsigned char* __restrict__ out_flag) {
+                unsigned char* __restrict__ out_flag,
+                int* __restrict__ out_internal, int* __restrict__ out_leaf,
+                int4* __restrict__ out_npush) {
     __shared__ int stacks[RAYS][STACK];
 
     const int group = threadIdx.x / G;
@@ -298,6 +412,8 @@ traverse_kernel(const float* __restrict__ records,
     float best_t = INFINITY, best_beta = 0.0f, best_gamma = 0.0f;
     int best_idx = -1;
     bool found = false;
+    int n_internal = 0, n_leaf = 0;          // COUNT only
+    int4 by_push = make_int4(0, 0, 0, 0);
 
     // an empty interval fails the root's slab tests: miss, no row is read
     int sp = (ray_t_max < r.t_min) ? 0 : 1;
@@ -308,10 +424,19 @@ traverse_kernel(const float* __restrict__ records,
         const int ref = stack[--sp];
         const float cur_t_max = ANY ? ray_t_max : fminf(ray_t_max, best_t);
         if (ref > 0) {
-            visit_internal(records + (size_t)(ref - 1) * ROW, r, cur_t_max,
-                           c, gmask, stack, sp);
+            const int n_push = visit_internal<FromTable>(
+                records + (size_t)(ref - 1) * ROW, r, cur_t_max, c, gmask,
+                stack, sp);
+            if constexpr (COUNT) {
+                ++n_internal;
+                by_push.x += n_push == 0;
+                by_push.y += n_push == 1;
+                by_push.z += n_push == 2;
+                by_push.w += n_push >= 3;
+            }
             continue;
         }
+        if constexpr (COUNT) ++n_leaf;
         // a leaf's LEAF_ROWS rows are consecutive: flat offsets from its
         // first row reach all of them
         const float* row = records + (size_t)(-ref - 1) * ROW;
@@ -325,47 +450,17 @@ traverse_kernel(const float* __restrict__ records,
             count = (int)__ldg(row + META + 2);
         }
 
-        // This lane's first minimum over its own slots (ascending slot
-        // order).  Every slot of the row is loaded and tested, whatever the
-        // leaf's count (leaves are packed full): the triangle loads then do
-        // not wait for the meta load, and `k < count` masks the rest.
         float my_t = INFINITY, my_beta = 0.0f, my_gamma = 0.0f;
         int my_k = c;
-        bool any_ok = false;
-#pragma unroll
-        for (int p = 0; p < TPL; ++p) {
-            const int k = c + G * p;
-            if (k < K) {
-                const float* col = row + k;
-                float t, beta, gamma;
-                const bool ok = tri_test(__ldg(col), __ldg(col + K), __ldg(col + 2 * K),
-                                         __ldg(col + 3 * K), __ldg(col + 4 * K),
-                                         __ldg(col + 5 * K), __ldg(col + 6 * K),
-                                         __ldg(col + 7 * K), __ldg(col + 8 * K),
-                                         r, cur_t_max, t, beta, gamma)
-                                && (k < count);
-                if (ANY) {
-                    any_ok = any_ok || ok;
-                } else if (ok && t < my_t) {
-                    my_t = t; my_beta = beta; my_gamma = gamma; my_k = k;
-                }
-            }
-        }
+        const bool any_ok = leaf_slots<ANY, FromTable>(
+            row, r, cur_t_max, c, count, my_t, my_beta, my_gamma, my_k);
         if (ANY) {
             if (__any_sync(gmask, any_ok)) { found = true; break; }
             continue;
         }
-        // first minimum of the leaf: smaller t, at equal t the smaller slot
         float win_t = my_t;
         int win_k = my_k;
-#pragma unroll
-        for (int m = G / 2; m > 0; m >>= 1) {
-            const float other_t = __shfl_xor_sync(gmask, win_t, m, G);
-            const int other_k = __shfl_xor_sync(gmask, win_k, m, G);
-            if (other_t < win_t || (other_t == win_t && other_k < win_k)) {
-                win_t = other_t; win_k = other_k;
-            }
-        }
+        group_first_min(win_t, win_k, gmask);
         // strict <: the earlier of two equal-t hits of different leaves is
         // kept (every lane of the group holds the same win_t and best_t)
         if (win_t < best_t) {
@@ -385,23 +480,243 @@ traverse_kernel(const float* __restrict__ records,
             out_beta[i] = best_beta;
             out_gamma[i] = best_gamma;
         }
+        if constexpr (COUNT) {
+            out_internal[i] = n_internal;
+            out_leaf[i] = n_leaf;
+            out_npush[i] = by_push;
+        }
     }
 }
 
-template <bool ANY>
+template <bool ANY, bool COUNT>
 int launch(const void* records, const void* ro, const void* rd,
            const void* t_min, const void* t_max, int n,
            void* out_t, void* out_idx, void* out_beta, void* out_gamma,
-           void* out_flag, void* stream) {
+           void* out_flag, void* out_internal, void* out_leaf,
+           void* out_npush, void* stream) {
     if (n > 0) {
         const int grid = (n + RAYS - 1) / RAYS;
-        traverse_kernel<ANY><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        traverse_kernel<ANY, COUNT><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
             (const float*)records, (const float*)ro, (const float*)rd,
             (const float*)t_min, (const float*)t_max, n,
             (float*)out_t, (int*)out_idx, (float*)out_beta, (float*)out_gamma,
-            (unsigned char*)out_flag);
+            (unsigned char*)out_flag, (int*)out_internal, (int*)out_leaf,
+            (int4*)out_npush);
     }
     return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- probes
+//
+// sp_row_chase <- tools/prof_visits.py::dma_chase (one chain) and
+// tools/prof_dma_chains.py::chase (C interleaved chains).  A serial pointer
+// chase over the table: each hop copies the LEAF_ROWS rows of row |ref| - 1,
+// reads slot 6W of the copy (an internal row's first child ref) and
+// follows it, or restarts chain c at row 1 + c (ref 1 + c) where the ref is
+// not positive; after `hops` hops it gives each chain's ref.  The TPU kernel
+// DMAs the row from HBM into SMEM; here one warp copies it into shared
+// memory, 16 B a lane, through the read-only cache the traversal reads rows
+// through, and issues every chain's copy of a step before it waits on any.
+// What bounds it: the latency of one dependent row load (a ref is known only
+// when the row that holds it has landed); the few distinct rows a chase
+// cycles through stay in L1/L2, so it reads the latency of a cached row, as
+// a traversal's top rows are.  Bytes and operations are far below it.
+// A ref outside the table is clamped to its last full row (the TPU kernel
+// would read past the table).
+template <int C>
+__global__ void __launch_bounds__(32)
+row_chase_kernel(const float* __restrict__ records, int n_rows, int hops,
+                 float* __restrict__ out_ref) {
+    constexpr int V = LEAF_ROWS * ROW / 4;     // float4 a copy: 32 a row
+    __shared__ float4 copies[C][V];
+    const int lane = threadIdx.x;
+    float ref[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) ref[c] = 1.0f + c;
+    for (int h = 0; h < hops; ++h) {
+        float4 v[C][LEAF_ROWS];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {          // every chain's copy in flight
+            const int row = max(0, min((int)fabsf(ref[c]) - 1, n_rows - LEAF_ROWS));
+            const float4* src = (const float4*)(records + (size_t)row * ROW);
+#pragma unroll
+            for (int q = 0; q < LEAF_ROWS; ++q) v[c][q] = __ldg(src + q * 32 + lane);
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+#pragma unroll
+            for (int q = 0; q < LEAF_ROWS; ++q) copies[c][q * 32 + lane] = v[c][q];
+        }
+        __syncwarp();
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            const float child = ((const float*)copies[c])[6 * W];
+            ref[c] = child > 0.0f ? child : 1.0f + c;
+        }
+        __syncwarp();                          // before the next copies land
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+        if (lane == c) out_ref[c] = ref[c];
+}
+
+// sp_visit_body <- tools/prof_visit_vpu.py::make_kernel.  `bodies`
+// back-to-back visit bodies on two rows held in shared memory, for the
+// probe's fixed ray (origin (0.1 + 1e-6 s, 2, 5), inverse direction
+// (3, -7, 2), t_min 1e-3; the seed s picks rows |s| - 1 and |s|), through
+// the traversal's own device functions:
+//   BODY_INTERNAL  child_key, place_children and push_children: the slab
+//                  test of child c on lane c, placement by rank (the network
+//                  on equal keys), the ballot and the push;
+//   BODY_NOREL     child_key alone: no shuffle, no vote;
+//   BODY_SORT      place_children on keys row[c] and refs row[W + c];
+//   BODY_LEAF      leaf_slots (the lane's K/G triangle slots, all K live) and
+//                  group_first_min (the butterfly).
+// The row is read from shared memory anew each body (its address adds a
+// zero read from shared memory as volatile, which no compiler pass can fold,
+// so no load or arithmetic of a body leaves the loop), and each body's
+// result feeds the next one's limit as in the TPU probe.  One float a ray:
+// the TPU probe's output value (internal: NaN where a child is not hit;
+// leaf: the nearest hit t of row |s|, or inf).  One warp's launch reads the
+// latency of a body; a launch that fills every SM reads their throughput.
+// What bounds it: instruction issue (the bodies' operations); the rows are
+// read from device memory once a block.
+// CHECK (a check launch, not timed) also writes what each lane of a ray
+// holds after the last body, 4 floats a lane, so that the bodies are held
+// against their plain version value by value, not only by the output:
+//   BODY_INTERNAL, BODY_SORT  lane j: the key and ref at place j (the
+//                  pushed order, nearest last), the count of keys > NEG_BIG
+//                  (n_push), 0; places past the count (-inf, 0, count, 0);
+//   BODY_NOREL     lane c: child c's key, near, far and ref;
+//   BODY_LEAF      lane c: its first minimum's t and slot, and the group's.
+enum BodyMode { BODY_INTERNAL = 0, BODY_NOREL = 1, BODY_SORT = 2, BODY_LEAF = 3 };
+
+template <int MODE, bool CHECK>
+__global__ void __launch_bounds__(BLOCK)
+visit_body_kernel(const float* __restrict__ records, int first_row,
+                  float seed, int bodies, int n, float* __restrict__ out,
+                  float* __restrict__ lanes) {
+    __shared__ float rows[2][LEAF_ROWS * ROW];   // rows |s| - 1 and |s| on
+    __shared__ int stacks[RAYS][STACK];
+    __shared__ int zero;             // read as volatile: 0, unknown to the compiler
+    if (threadIdx.x == 0) zero = 0;
+    for (int q = threadIdx.x; q < 2 * LEAF_ROWS * ROW; q += BLOCK) {
+        const int b = q / (LEAF_ROWS * ROW);
+        rows[b][q - b * LEAF_ROWS * ROW] =
+            __ldg(records + (size_t)(first_row + b) * ROW + (q - b * LEAF_ROWS * ROW));
+    }
+    __syncthreads();
+
+    const int group = threadIdx.x / G;
+    const int i = blockIdx.x * RAYS + group;
+    if (i >= n) return;
+    const int c = threadIdx.x % G;
+    const unsigned gmask = ((1u << G) - 1u) << ((threadIdx.x % 32) - c);
+    int* stack = stacks[group];
+
+    Ray r;
+    r.ox = 0.1f + seed * 1e-6f; r.oy = 2.0f; r.oz = 5.0f;
+    r.ix = 3.0f; r.iy = -7.0f; r.iz = 2.0f;
+    r.dx = 1.0f / r.ix; r.dy = 1.0f / r.iy; r.dz = 1.0f / r.iz;
+    r.t_min = 1e-3f;
+
+    float carry = INFINITY;          // the limit the next body tests against
+    float w0 = 0.0f, w1 = 0.0f, w2 = 0.0f, w3 = 0.0f;   // CHECK: the last body's
+    int w_place = 0;
+    for (int m = 0; m < bodies; ++m) {
+        const int z = *(volatile int*)&zero;
+        const float* node = rows[0] + z;
+        const float* leaf = rows[1] + z;
+        if constexpr (MODE == BODY_INTERNAL) {
+            int val;
+            float near, far;
+            float key = child_key<FromShared>(node, r, carry, c, val, near, far);
+            const int place = place_children(key, val, c, gmask);
+            int sp = 0;
+            const int n_push = push_children(key, val, place, gmask, stack, sp);
+            carry = carry + key * 0.0f + (float)n_push * 0.0f;
+            if constexpr (CHECK) {
+                w0 = key; w1 = (float)val; w2 = (float)n_push; w_place = place;
+            }
+        } else if constexpr (MODE == BODY_NOREL) {
+            int val;
+            float near, far;
+            [[maybe_unused]] const float key =
+                child_key<FromShared>(node, r, carry, c, val, near, far);
+            carry = carry + (near * 0.0f + far * 0.0f) * 0.0f;
+            if constexpr (CHECK) { w0 = key; w1 = near; w2 = far; w3 = (float)val; }
+        } else if constexpr (MODE == BODY_SORT) {
+            float key = FromShared::ld(node + c);
+            int val = __float_as_int(FromShared::ld(node + W + c));
+            const int place = place_children(key, val, c, gmask);
+            carry = carry + ((place == 0)
+                             ? key * 0.0f + __int_as_float(val) * 0.0f : 0.0f);
+            if constexpr (CHECK) {
+                w0 = key; w1 = __int_as_float(val); w_place = place;
+                w2 = (float)__popc(__ballot_sync(gmask, key > NEG_BIG) & gmask);
+            }
+        } else {
+            float my_t = INFINITY, my_beta = 0.0f, my_gamma = 0.0f;
+            int my_k = c;
+            leaf_slots<false, FromShared>(leaf, r, carry, c, K, my_t, my_beta,
+                                          my_gamma, my_k);
+            float win_t = my_t;
+            int win_k = my_k;
+            group_first_min(win_t, win_k, gmask);
+            carry = (win_t < carry) ? win_t : carry;
+            if constexpr (CHECK) {
+                w0 = my_t; w1 = (float)my_k; w2 = win_t; w3 = (float)win_k;
+            }
+        }
+    }
+    if constexpr (MODE == BODY_INTERNAL) {   // the pushes are read
+        __syncwarp(gmask);
+        carry = carry + (float)stack[0] * 0.0f;
+    }
+    if constexpr (CHECK) {
+        if constexpr (MODE == BODY_INTERNAL || MODE == BODY_SORT) {
+            // scatter (key, ref) to their places; lane j reads place j
+            __syncwarp(gmask);
+            if (w0 > NEG_BIG) {
+                stack[w_place] = __float_as_int(w0);
+                stack[W + w_place] = __float_as_int(w1);
+            }
+            __syncwarp(gmask);
+            const bool live = c < (int)w2;
+            w0 = live ? __int_as_float(stack[c]) : -INFINITY;
+            w1 = live ? __int_as_float(stack[W + c]) : 0.0f;
+        }
+        float* lane = lanes + ((size_t)i * G + c) * 4;
+        lane[0] = w0; lane[1] = w1; lane[2] = w2; lane[3] = w3;
+    }
+    // one float a ray: the group's lanes combined, NaN propagating
+#pragma unroll
+    for (int m = G / 2; m > 0; m >>= 1)
+        carry = pmax(carry, __shfl_xor_sync(gmask, carry, m, G));
+    if (c == 0) out[i] = carry;
+}
+
+template <int MODE>
+int launch_body(const void* records, int first_row, float seed, int bodies,
+                int n, void* out, void* lanes, void* stream) {
+    if (n > 0) {
+        const int grid = (n + RAYS - 1) / RAYS;
+        const cudaStream_t s = (cudaStream_t)stream;
+        const float* rec = (const float*)records;
+        if (lanes)
+            visit_body_kernel<MODE, true><<<grid, BLOCK, 0, s>>>(
+                rec, first_row, seed, bodies, n, (float*)out, (float*)lanes);
+        else
+            visit_body_kernel<MODE, false><<<grid, BLOCK, 0, s>>>(
+                rec, first_row, seed, bodies, n, (float*)out, nullptr);
+    }
+    return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int body_blocks_per_sm(int* blocks) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, visit_body_kernel<MODE, false>, BLOCK, 0);
 }
 
 }  // namespace
@@ -412,13 +727,82 @@ extern "C" int sp_closest(const void* records, const void* ro, const void* rd,
                           const void* t_min, const void* t_max, int n,
                           void* out_t, void* out_idx, void* out_beta,
                           void* out_gamma, void* out_valid, void* stream) {
-    return launch<false>(records, ro, rd, t_min, t_max, n, out_t, out_idx,
-                         out_beta, out_gamma, out_valid, stream);
+    return launch<false, false>(records, ro, rd, t_min, t_max, n, out_t,
+                                out_idx, out_beta, out_gamma, out_valid,
+                                nullptr, nullptr, nullptr, stream);
 }
 
 extern "C" int sp_anyhit(const void* records, const void* ro, const void* rd,
                          const void* t_min, const void* t_max, int n,
                          void* out_occluded, void* stream) {
-    return launch<true>(records, ro, rd, t_min, t_max, n, nullptr, nullptr,
-                        nullptr, nullptr, out_occluded, stream);
+    return launch<true, false>(records, ro, rd, t_min, t_max, n, nullptr,
+                               nullptr, nullptr, nullptr, out_occluded,
+                               nullptr, nullptr, nullptr, stream);
+}
+
+// sp_closest's outputs, and per ray: internal visits i32, leaf visits i32,
+// internal visits by n_push = 0, 1, 2, >= 3 as i32[4] (16-byte aligned)
+extern "C" int sp_closest_count(const void* records, const void* ro,
+                                const void* rd, const void* t_min,
+                                const void* t_max, int n, void* out_t,
+                                void* out_idx, void* out_beta,
+                                void* out_gamma, void* out_valid,
+                                void* out_internal, void* out_leaf,
+                                void* out_npush, void* stream) {
+    return launch<false, true>(records, ro, rd, t_min, t_max, n, out_t,
+                               out_idx, out_beta, out_gamma, out_valid,
+                               out_internal, out_leaf, out_npush, stream);
+}
+
+// chains: 1, 2, 4 or 8 (others return cudaErrorInvalidValue); out_ref f32[chains]
+extern "C" int sp_row_chase(const void* records, int n_rows, int chains,
+                            int hops, void* out_ref, void* stream) {
+    const float* rec = (const float*)records;
+    float* out = (float*)out_ref;
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (chains) {
+        case 1: row_chase_kernel<1><<<1, 32, 0, s>>>(rec, n_rows, hops, out); break;
+        case 2: row_chase_kernel<2><<<1, 32, 0, s>>>(rec, n_rows, hops, out); break;
+        case 4: row_chase_kernel<4><<<1, 32, 0, s>>>(rec, n_rows, hops, out); break;
+        case 8: row_chase_kernel<8><<<1, 32, 0, s>>>(rec, n_rows, hops, out); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+// mode: BodyMode; n rays, out f32[n]; lanes f32[n, G, 4] for a check
+// launch, else null; rows first_row and first_row + 1 on
+// (LEAF_ROWS each) must lie in the table
+extern "C" int sp_visit_body(const void* records, int first_row, float seed,
+                             int mode, int bodies, int n, void* out,
+                             void* lanes, void* stream) {
+    switch (mode) {
+        case BODY_INTERNAL:
+            return launch_body<BODY_INTERNAL>(records, first_row, seed, bodies, n, out, lanes, stream);
+        case BODY_NOREL:
+            return launch_body<BODY_NOREL>(records, first_row, seed, bodies, n, out, lanes, stream);
+        case BODY_SORT:
+            return launch_body<BODY_SORT>(records, first_row, seed, bodies, n, out, lanes, stream);
+        case BODY_LEAF:
+            return launch_body<BODY_LEAF>(records, first_row, seed, bodies, n, out, lanes, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
+// blocks of sp_closest resident on one SM at once
+extern "C" int sp_closest_blocks_per_sm(int* blocks) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, traverse_kernel<false, false>, BLOCK, 0);
+}
+
+// blocks of sp_visit_body's mode resident on one SM at once
+extern "C" int sp_visit_body_blocks_per_sm(int mode, int* blocks) {
+    switch (mode) {
+        case BODY_INTERNAL: return body_blocks_per_sm<BODY_INTERNAL>(blocks);
+        case BODY_NOREL: return body_blocks_per_sm<BODY_NOREL>(blocks);
+        case BODY_SORT: return body_blocks_per_sm<BODY_SORT>(blocks);
+        case BODY_LEAF: return body_blocks_per_sm<BODY_LEAF>(blocks);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

@@ -376,12 +376,13 @@ def _sortw_desc(keys: Tensor, vals: Tensor) -> tuple[Tensor, Tensor]:
     return torch.stack(k, 1), torch.stack(v, 1)
 
 
-def _visit_internal(rec, is_leaf, ro, inv_d, t_min, cur_t_max):
-    """Slab-test the W children of each lane's row and pack the hit child
-    refs far-to-near (LIFO stack → nearest pops first).  torch.minimum /
-    maximum propagate NaN, which culls a child whose slab product is NaN.
-
-    Returns (packed_refs [N,W] int64, n_push [N])."""
+def _child_keys(rec, ro, inv_d, t_min, cur_t_max):
+    """The slab test of the W children of each lane's row (the kernel's
+    ``child_key``): the key, the ray's unclamped ``tnear`` where the child is
+    hit and -inf where it is not, [N,W]; the child refs (int64); and
+    ``near`` / ``far``, the clamped entry and exit the hit test compares.
+    ``t_min`` / ``cur_t_max`` broadcast against [N,W].  torch.minimum /
+    maximum propagate NaN, which culls a child whose slab product is NaN."""
     W = WIDTH
     t0x = (rec[:, 0:W] - ro[:, 0:1]) * inv_d[:, 0:1]
     t0y = (rec[:, W:2 * W] - ro[:, 1:2]) * inv_d[:, 1:2]
@@ -392,11 +393,20 @@ def _visit_internal(rec, is_leaf, ro, inv_d, t_min, cur_t_max):
     mn, mx = torch.minimum, torch.maximum
     tnear = mx(mx(mn(t0x, t1x), mn(t0y, t1y)), mn(t0z, t1z))
     tfar = mn(mn(mx(t0x, t1x), mx(t0y, t1y)), mx(t0z, t1z))
-    box_hit = (mx(tnear, t_min[:, None]) <= mn(tfar, cur_t_max[:, None])) \
-        & (tfar >= t_min[:, None])
+    near, far = mx(tnear, t_min), mn(tfar, cur_t_max)
     cref = rec[:, 6 * W:7 * W].to(torch.int64)   # refs are exact f32 values
-    push = box_hit & (cref != 0) & ~is_leaf[:, None]
-    key = torch.where(push, tnear, -_INF)
+    hit = (near <= far) & (tfar >= t_min) & (cref != 0)
+    return torch.where(hit, tnear, -_INF), cref, near, far
+
+
+def _visit_internal(rec, is_leaf, ro, inv_d, t_min, cur_t_max):
+    """Slab-test the W children of each lane's row and pack the hit child
+    refs far-to-near (LIFO stack → nearest pops first).
+
+    Returns (packed_refs [N,W] int64, n_push [N])."""
+    key, cref, _, _ = _child_keys(rec, ro, inv_d, t_min[:, None],
+                                  cur_t_max[:, None])
+    key = torch.where(is_leaf[:, None], -_INF, key)
     skey, packed = _sortw_desc(key, cref)
     n_push = (skey > _NEG_BIG).sum(dim=1)
     return packed, n_push
@@ -472,6 +482,10 @@ def _init_stack(n: int, device):
     return stack, torch.ones(n, dtype=torch.int64, device=device)
 
 
+# internal visits by n_push, the number of hit children: 0, 1, 2, >= 3
+N_PUSH_BUCKETS = 4
+
+
 class _VisitCounter:
     """Per-ray visit counts of one plain traversal and the table rows it
     touched, for its ``stats``."""
@@ -481,15 +495,20 @@ class _VisitCounter:
         self.live = live
         self.internal = torch.zeros(n, dtype=torch.int64, device=device)
         self.leaf = torch.zeros(n, dtype=torch.int64, device=device)
+        self.by_push = torch.zeros((n, N_PUSH_BUCKETS), dtype=torch.int64,
+                                   device=device)
         self.by_count = torch.zeros(LEAF_SIZE + 1, dtype=torch.int64, device=device)
         self.internal_rows = torch.zeros(n_rows, dtype=torch.bool, device=device)
         self.leaf_rows = torch.zeros(n_rows, dtype=torch.bool, device=device)
 
     def visit(self, ref: Tensor, rec: Tensor, is_leaf: Tensor,
-              active: Tensor) -> None:
+              active: Tensor, n_push: Tensor) -> None:
         at_leaf = is_leaf & active
         self.leaf += at_leaf
         self.internal += ~is_leaf & active
+        bucket = torch.clamp_max(n_push, N_PUSH_BUCKETS - 1)
+        self.by_push += (torch.nn.functional.one_hot(bucket, N_PUSH_BUCKETS)
+                         * (~is_leaf & active)[:, None])
         row = torch.abs(ref) - 1
         self.internal_rows[row[~is_leaf & active & self.live]] = True
         self.leaf_rows[row[at_leaf & self.live]] = True
@@ -508,6 +527,7 @@ class _VisitCounter:
         stats["leaf_visits_by_count"] = [a + b for a, b in zip(prev, by_count)]
         stats["ray_internal_visits"] = self.internal
         stats["ray_leaf_visits"] = self.leaf
+        stats["ray_internal_visits_by_push"] = self.by_push
         stats["internal_rows_visited"] = self.internal_rows
         stats["leaf_rows_visited"] = self.leaf_rows
 
@@ -519,7 +539,9 @@ def closest_plain(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
     triangles visited, summed over rays — the kernel visits the same rows in
     the same order — and, per call, ``leaf_visits_by_count`` (leaf visits by
     the leaf's triangle count, 0..K), the int64[N] per-ray counts
-    ``ray_internal_visits`` / ``ray_leaf_visits``, and the bool[M] masks
+    ``ray_internal_visits`` / ``ray_leaf_visits``, the int64[N,4]
+    ``ray_internal_visits_by_push`` (a ray's internal visits by the number of
+    children it pushed: 0, 1, 2, >= 3), and the bool[M] masks
     ``internal_rows_visited`` / ``leaf_rows_visited`` of the table rows that
     rays with a non-empty interval (t_max >= t_min) visited: the distinct
     rows a traversal of these rays has to read.  A ray with an empty interval
@@ -561,7 +583,7 @@ def closest_plain(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
 
         sp = _push(stack, sp, packed, torch.where(active, n_push, 0))
         if counter is not None:
-            counter.visit(ref, rec, is_leaf, active)
+            counter.visit(ref, rec, is_leaf, active, n_push)
 
     if counter is not None:
         counter.add_to(stats)
@@ -591,7 +613,7 @@ def anyhit_plain(records: Tensor, ro: Tensor, rd: Tensor, t_min: Tensor,
         found = found | (valid.any(dim=1) & is_leaf & active)
         sp = _push(stack, sp, packed, torch.where(active, n_push, 0))
         if counter is not None:
-            counter.visit(ref, rec, is_leaf, active)
+            counter.visit(ref, rec, is_leaf, active, n_push)
 
     if counter is not None:
         counter.add_to(stats)

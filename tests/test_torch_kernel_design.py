@@ -12,7 +12,11 @@ holds them against their plain versions):
 * the group's butterfly reduction (smaller t, then smaller slot) picks what
   ``argmin`` picks in the plain version;
 * the plain versions' per-ray visit counts add up to the totals they report;
-* the wrappers return ``torch.bool`` flags.
+* the wrappers return ``torch.bool`` flags;
+* the measuring kernels (``sp_closest_count``, ``sp_row_chase``,
+  ``sp_visit_body``) are declared in ``csrc/traverse.cu``, the counting flag
+  is off in the traversal kernels' instances, the probes' constants are the
+  source's, and their wrappers raise on what the kernels do not take.
 
 Everything here is exact: integers, orders and equal floats, no tolerance.
 """
@@ -474,3 +478,161 @@ def test_wrappers_return_bool_flags(scene, n):
     assert valid.shape == occ.shape == (n,)
     assert idx.dtype == torch.int32 and t.dtype == torch.float32
     assert torch.equal(valid, occ)
+
+
+# -------------------------------------------------------------- probes
+
+def _entry_point(source, name):
+    m = re.search(rf'extern "C" int {name}\((.*?)\n\}}', source, re.S)
+    assert m, f"no extern \"C\" {name} in traverse.cu"
+    return m.group(1)
+
+
+@pytest.mark.parametrize("name", ["sp_closest_count", "sp_row_chase",
+                                  "sp_visit_body"])
+def test_sources_declare_the_probe_kernels(name):
+    csrc = os.path.dirname(ct.KERNEL_SOURCE)
+    found = []
+    for f in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, f)) as fh:
+            if re.search(rf'extern "C" int {name}\(', fh.read()):
+                found.append(f)
+    assert found == ["traverse.cu"]
+
+
+def test_counting_is_off_in_the_traversal_instances(source):
+    """sp_closest / sp_anyhit launch the kernel without COUNT, only
+    sp_closest_count with it, and what COUNT adds sits under `if constexpr`."""
+    assert "launch<false, false>(" in _entry_point(source, "sp_closest")
+    assert "launch<true, false>(" in _entry_point(source, "sp_anyhit")
+    assert "launch<false, true>(" in _entry_point(source, "sp_closest_count")
+    assert re.search(r"template <bool ANY, bool COUNT>\n__global__", source)
+    kernel = source[source.index("traverse_kernel(const float*"):
+                    source.index("template <bool ANY, bool COUNT>\nint launch")]
+    # drop the COUNT blocks (braced, or one statement) and the counters'
+    # declarations: no use of a counter is left
+    rest, n_blocks = re.subn(r"if constexpr \(COUNT\) (\{[^{}]*\}|[^;{]*;)", "",
+                             kernel)
+    assert n_blocks == 3
+    rest = re.sub(r"int n_internal = 0, n_leaf = 0;.*\n.*int4 by_push = .*;", "",
+                  rest)
+    assert not re.search(r"\b(n_internal|n_leaf|by_push)\b", rest)
+
+
+def test_the_visit_body_checks_only_in_its_check_launch(source):
+    """sp_visit_body runs the CHECK instance only where a lanes buffer is
+    given, the occupancy is read off the timed instance, and what CHECK
+    adds to the kernel sits under `if constexpr`; the traversal's occupancy
+    is read off sp_closest's instance."""
+    launch = source[source.index("int launch_body("):
+                    source.index("int body_blocks_per_sm(")]
+    assert re.search(r"if \(lanes\)\s*visit_body_kernel<MODE, true>", launch)
+    assert re.search(r"else\s*visit_body_kernel<MODE, false><<<[^;]*nullptr\);",
+                     launch)
+    assert "visit_body_kernel<MODE, false>, BLOCK, 0);" in source
+    assert "traverse_kernel<false, false>, BLOCK, 0);" in _entry_point(
+        source, "sp_closest_blocks_per_sm")
+    kernel = source[source.index("visit_body_kernel(const float*"):
+                    source.index("int launch_body(")]
+    rest = re.sub(r"//.*", "", kernel)
+    while "if constexpr (CHECK) {" in rest:       # drop each braced block
+        i = rest.index("if constexpr (CHECK) {")
+        depth, j = 0, rest.index("{", i)
+        while True:
+            depth += {"{": 1, "}": -1}.get(rest[j], 0)
+            if depth == 0:
+                break
+            j += 1
+        rest = rest[:i] + rest[j + 1:]
+    rest = re.sub(r"float w0 = 0.0f.*\n\s*int w_place = 0;", "", rest)
+    assert not re.search(r"\b(w0|w1|w2|w3|w_place|lanes)\b",
+                         rest.split(")", 1)[1].split("{", 1)[1])
+
+
+@pytest.mark.parametrize("bad", ["bodies", "mode", "rays"])
+def test_visit_body_lanes_raises_on_what_the_kernel_does_not_take(scene, bad):
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    rec, mode, bodies, n = scene.bvh.records, "leaf", 2, 4
+    if bad == "bodies":
+        bodies = 0                        # a check launch runs a body
+    elif bad == "mode":
+        mode = "sort"
+    else:
+        n = -1
+    with pytest.raises(ValueError):
+        cp.visit_body_lanes(rec, 1.0, mode, bodies, n)
+
+
+def test_probe_constants_are_the_sources(source):
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    modes = re.search(r"enum BodyMode \{([^}]*)\}", source).group(1)
+    numbered = dict((name, int(v)) for name, v in
+                    re.findall(r"(BODY_\w+)\s*=\s*(\d+)", modes))
+    assert sorted(numbered.values()) == list(range(len(cp.BODY_MODES)))
+    order = [n for n, _ in sorted(numbered.items(), key=lambda kv: kv[1])]
+    assert order == ["BODY_INTERNAL", "BODY_NOREL", "BODY_SORT", "BODY_LEAF"]
+    chase = _entry_point(source, "sp_row_chase")
+    assert tuple(int(c) for c in re.findall(r"case (\d+):", chase)) == cp.CHAINS
+    m = re.search(r"^constexpr int LEAF_ROWS = \(META \+ 3 \+ ROW - 1\) / ROW;",
+                  source, re.M)
+    assert m and bvh.LEAF_ROWS == (9 * bvh.LEAF_SIZE + 3 + 127) // 128
+
+
+def test_per_ray_push_buckets_sum_to_the_internal_visits(scene):
+    stats = {}
+    ct.closest_plain(scene.bvh.records, *_rays(120, 11), stats=stats)
+    by_push = stats["ray_internal_visits_by_push"]
+    assert by_push.shape == (120, 4) and by_push.dtype == torch.int64
+    assert torch.equal(by_push.sum(dim=1), stats["ray_internal_visits"])
+    assert int(by_push[:, 1:].sum()) > 0      # some visits push children
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "limits", "records"])
+def test_closest_count_raises_on_what_the_kernel_does_not_take(scene, bad):
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    rec, (ro, rd, t_min, t_max) = scene.bvh.records, _rays(8, 4)
+    if bad == "dtype":
+        ro = ro.double()
+    elif bad == "shape":
+        rd = rd[:, :2]
+    elif bad == "limits":
+        t_max = t_max[:4]
+    else:
+        rec = rec[:, :64]
+    with pytest.raises((TypeError, ValueError)):
+        cp.closest_count(rec, ro, rd, t_min, t_max)
+
+
+@pytest.mark.parametrize("bad", ["chains", "hops", "records", "dtype"])
+def test_row_chase_raises_on_what_the_kernel_does_not_take(scene, bad):
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    rec, chains, hops = scene.bvh.records, 2, 10
+    if bad == "chains":
+        chains = 3
+    elif bad == "hops":
+        hops = -1
+    elif bad == "records":
+        rec = rec[:, :64]
+    else:
+        rec = rec.double()
+    with pytest.raises((TypeError, ValueError)):
+        cp.row_chase(rec, chains, hops)
+
+
+@pytest.mark.parametrize("bad", ["mode", "seed_zero", "seed_past_the_table",
+                                 "rays", "dtype"])
+def test_visit_body_raises_on_what_the_kernel_does_not_take(scene, bad):
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    rec, seed, mode, n = scene.bvh.records, 1.0, "internal", 4
+    if bad == "mode":
+        mode = "leaf_norel"
+    elif bad == "seed_zero":
+        seed = 0.5                        # row |s| - 1 = -1
+    elif bad == "seed_past_the_table":
+        seed = float(rec.shape[0])        # row |s| is past the last
+    elif bad == "rays":
+        n = -1
+    else:
+        rec = rec.double()
+    with pytest.raises((TypeError, ValueError)):
+        cp.visit_body(rec, seed, mode, 2, n)

@@ -117,13 +117,11 @@ def main() -> int:
 
     scene = sp.load_scene(cs.SCENE)
     records = scene.bvh.records
-    shared = {"primary": cs.primary_rays(scene),
-              "incoherent": cs.incoherent_rays(scene)}
-    bounces = cs.bounce_rays(scene)
+    sets = cs.kernel_ray_sets(scene)
     order = list(libs)
     for kernel in ("closest", "anyhit"):
         plain = ct.closest_plain if kernel == "closest" else ct.anyhit_plain
-        for case, rays in {**shared, **bounces[kernel]}.items():
+        for case, rays in sets[kernel].items():
             ref = plain(records, *rays)
             runs = {}
             for name, lib in libs.items():
