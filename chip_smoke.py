@@ -59,13 +59,24 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            against the render phase's image (max abs diff < 1e-4), launches,
            peak memory, forest build cold and warm through the cache; the
            forest's kernels vs plain versions at 128x128; the same frame
-           through one BVH and through the forest, timed in turns (A B B A);
-           then a lucy-class terrain of 2,101,250 triangles
-           (io/meshgen.displaced_grid(1026), lucy_bench.sp's camera,
-           materials, plane and light, cut from 1350x2000 to 1024x1024) at
-           1 spp, one BVH and a forest of 4, builds cold and warm, held
-           together at the lucy gate (< 1 % of pixels off by > 1e-3, means
-           within 1 %)
+           through one BVH and through the forest, timed in turns (A B B A)
+  lucy     the lucy-class stress scene at its full size: scenes/lucy_bench.sp
+           (1350x2000, depth 10) over a 28,895,202-triangle terrain
+           (io/meshgen.displaced_grid(3802), written by
+           io/meshgen.write_terrain into chip_smoke_out/lucy/), built
+           cold and warm (rows, bytes, leaf occupancy, depth and the stack
+           slots it needs, host peak memory); both kernels against their
+           plain versions on the kernels phase's five ray sets built from
+           lucy's scene (incoherent reach scaled by its size over the
+           bench's; the deepest bounce reached stands in for one the chunk
+           never reached, named so), at the kernels phase's gates and beside
+           the bench's readings; sp_closest_count on its primary and
+           incoherent rays (counts equal to the plain version's); the full
+           frame at 1 spp (42 chunks, the last padded); a 128x128 render
+           through the kernels bit-equal to the plain-version render; the
+           full frame through a forest of 4, built cold and warm, held to the
+           one-BVH frame at the lucy gate (< 1 % of pixels off by > 1e-3,
+           means within 1 %); each step's seconds
   ranks    two processes on the one card, joined over gloo (NCCL takes one
            GPU a rank; gloo stages the CUDA tensors of a collective through
            the host): the bench frame at 1 spp by render_image_multihost,
@@ -119,7 +130,7 @@ SCENE = os.path.join(HERE, "scenes", "bunny_bench.sp")
 OUT_DIR = os.path.join(HERE, "chip_smoke_out")
 IBL_TEST_SCENE = os.path.join(HERE, "tests", "scenes", "g_ibl_rrnee.sp")
 PHASES = ("device", "build", "kernels", "probes", "render", "paths", "parity",
-          "cli", "train", "geom", "ranks", "topology")
+          "cli", "train", "geom", "lucy", "ranks", "topology")
 # the traced integrators besides the flagship, and whether each has NEE
 # (next-event estimation: shadow rays through sp_anyhit)
 PATHS = {"direct_lighting": True, "brute_force": False,
@@ -253,11 +264,13 @@ def primary_rays(scene, side: int = 256):
     return ro.contiguous(), rd.contiguous(), t_min, t_max
 
 
-def incoherent_rays(scene, n: int = 65499, seed: int = 7):
+def incoherent_rays(scene, n: int = 65499, seed: int = 7, reach: float = 1.0):
     """Seeded bounce-like rays: origins on the surfaces the primary rays hit
     (drawn with replacement, so in no spatial order), uniform directions;
-    ~10 % dead lanes (t_max = -inf), the rest of finite or infinite reach;
-    N is deliberately not a multiple of 32."""
+    ~10 % dead lanes (t_max = -inf), the rest of finite or infinite reach
+    (finite: 0.5-4.5 bench units times ``reach``, which scales them to
+    another scene's size; reach_of); N is deliberately not a multiple of
+    32."""
     from simplepath_tpu_torch.render.traverse import scene_intersect_batch
     ro, rd, t_min, t_max = primary_rays(scene)
     hit = scene_intersect_batch(scene, ro, rd, t_min, t_max)
@@ -268,7 +281,7 @@ def incoherent_rays(scene, n: int = 65499, seed: int = 7):
     direction = d / np.linalg.norm(d, axis=1, keepdims=True)
     t_min = np.full(n, 1e-3, np.float32)
     t_max = np.where(rs.rand(n) < 0.5, np.inf,
-                     0.5 + 4.0 * rs.rand(n)).astype(np.float32)
+                     (0.5 + 4.0 * rs.rand(n)) * reach).astype(np.float32)
     t_max[rs.rand(n) < 0.1] = -np.inf
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(scene.device)
     return to(origin), to(direction), to(t_min), to(t_max)
@@ -287,25 +300,50 @@ def uniform_rays(n: int, seed: int, device):
             to(np.full(n, np.inf)))
 
 
-def bounce_rays(scene, rows: tuple = (480, 544)) -> dict:
-    """The integrator's own wavefronts: render one chunk (``rows`` of the
-    frame: 65,536 rays of the bench scene, 1 spp) with the two wrappers
-    wrapped here so that the inputs of their calls of bounces BOUNCES are
-    kept.  One render at 1 spp calls each wrapper once a bounce.  Returns
-    {"closest": {case: rays}, "anyhit": {case: rays}}."""
+def scene_extent(scene) -> float:
+    """The diagonal of the box around the scene's triangles."""
+    tri = scene.triangles
+    pts = torch.cat([tri._stack(name) for name in ("v0", "v1", "v2")])
+    return float((pts.amax(dim=0) - pts.amin(dim=0)).norm())
+
+
+def reach_of(scene, bench) -> float:
+    """incoherent_rays' ``reach`` for ``scene``: its size over the bench's,
+    so that its finite rays end as far into it as the bench's do."""
+    return scene_extent(scene) / scene_extent(bench)
+
+
+def middle_run(width: int, height: int, n: int = 65536) -> tuple:
+    """The ``n`` linear pixel indices (row-major, as render_image_sharded
+    chunks a frame) around the middle of a width x height frame → (start,
+    stop); on the bench's 1024x1024, rows 480-543."""
+    start = max(width * height // 2 - n // 2, 0)
+    return start, min(start + n, width * height)
+
+
+def bounce_rays(scene, stand_in: bool = False) -> tuple:
+    """The integrator's own wavefronts: render one chunk (middle_run of the
+    frame: 65,536 rays, 1 spp) with the two wrappers wrapped here so that
+    the inputs of their calls of bounces BOUNCES are kept.  One render at 1
+    spp calls each wrapper once a bounce.  A bounce the chunk did not reach
+    (its paths all ended before it) raises; with ``stand_in`` the deepest
+    bounce reached takes its place, named ``bounce{k}_deepest``.  Returns
+    ({"closest": {case: rays}, "anyhit": {case: rays}}, {kernel: calls})."""
     import simplepath_tpu_torch as sp
     from simplepath_tpu_torch.core.rng import prng_key
     from simplepath_tpu_torch.render import cuda_traverse as ct
 
     kept = {"closest": {}, "anyhit": {}}
+    last = {}
     calls = {"closest": 0, "anyhit": 0}
     originals = {name: getattr(ct, name) for name in kept}
 
     def keeping(name):
         def wrapped(records, ro, rd, t_min, t_max):
+            rays = tuple(x.clone() for x in (ro, rd, t_min, t_max))
             if calls[name] in BOUNCES:
-                kept[name][f"bounce{calls[name]}"] = tuple(
-                    x.clone() for x in (ro, rd, t_min, t_max))
+                kept[name][f"bounce{calls[name]}"] = rays
+            last[name] = (calls[name], rays)
             calls[name] += 1
             return originals[name](records, ro, rd, t_min, t_max)
         return wrapped
@@ -313,19 +351,25 @@ def bounce_rays(scene, rows: tuple = (480, 544)) -> dict:
     for name in kept:
         setattr(ct, name, keeping(name))
     try:
-        w = scene.static.width
-        lin = torch.arange(rows[0] * w, rows[1] * w, device=scene.device)
-        sp.render_rays(scene, lin % w, lin // w, 1, prng_key(1))
+        st = scene.static
+        lin = torch.arange(*middle_run(st.width, st.height), device=scene.device)
+        sp.render_rays(scene, lin % st.width, lin // st.width, 1, prng_key(1),
+                       device=scene.device)
         torch.cuda.synchronize()
     finally:
         for name, fn in originals.items():
             setattr(ct, name, fn)
     for name, cases in kept.items():
-        if len(cases) != len(BOUNCES):
+        if len(cases) == len(BOUNCES):
+            continue
+        if not stand_in or name not in last:
             raise AssertionError(f"the chunk render called {name} "
                                  f"{calls[name]} times; bounces {BOUNCES} "
                                  "were not all reached")
-    return kept
+        deepest, rays = last[name]
+        if deepest not in BOUNCES:
+            cases[f"bounce{deepest}_deepest"] = rays
+    return kept, calls
 
 
 def lane_step_share(visits: torch.Tensor, rays_per_warp: int) -> float:
@@ -459,12 +503,14 @@ def traversal_work(stats: dict, n: int, dead_rays: int, out_bytes: int) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def kernel_ray_sets(scene) -> dict:
-    """Each kernel's five ray sets: {"closest": {case: rays}, "anyhit": ...}."""
+def kernel_ray_sets(scene, reach: float = 1.0, stand_in: bool = False) -> tuple:
+    """Each kernel's five ray sets, and each wrapper's calls in the chunk
+    of bounce_rays → ({"closest": {case: rays}, "anyhit": ...}, {kernel:
+    calls}); ``reach`` is incoherent_rays', ``stand_in`` bounce_rays'."""
     shared = {"primary": primary_rays(scene),
-              "incoherent": incoherent_rays(scene)}
-    bounces = bounce_rays(scene)
-    return {kernel: {**shared, **bounces[kernel]} for kernel in bounces}
+              "incoherent": incoherent_rays(scene, reach=reach)}
+    bounces, calls = bounce_rays(scene, stand_in)
+    return {kernel: {**shared, **bounces[kernel]} for kernel in bounces}, calls
 
 
 def phase_kernels(scene, sets: dict) -> dict:
@@ -1412,11 +1458,6 @@ def phase_train(scene) -> dict:
 
 
 GEOM_SHARDS = 4
-# displaced_grid(n) has 2 (n - 1)^2 triangles: 2,101,250 here, a record
-# table ~6.4 times the bench scene's, over twice the card's 50 MB L2
-TERRAIN_GRID = 1026
-TERRAIN_SIDE = 1024         # lucy_bench.sp's 1350x2000, cut for time
-LUCY_SCENE = os.path.join(HERE, "scenes", "lucy_bench.sp")
 
 
 def held_against(img, ref) -> dict:
@@ -1452,32 +1493,13 @@ def forest_builds(scene, mesh, cache_dir: str) -> tuple:
     return forest, cold, warm
 
 
-def terrain_text(ply: str) -> str:
-    """lucy_bench.sp with the terrain of ``ply`` and a 1024x1024 film."""
-    with open(LUCY_SCENE) as f:
-        text = f.read()
-    for old, new in (('"terrain_28m.ply"', f'"{ply}"'),
-                     ("width: 1350", f"width: {TERRAIN_SIDE}"),
-                     ("height: 2000", f"height: {TERRAIN_SIDE}")):
-        if old not in text:
-            raise AssertionError(f"{LUCY_SCENE} has no {old}")
-        text = text.replace(old, new)
-    return text
-
-
 def phase_geom(scene, spp: int, ref) -> dict:
     """The bench scene as a forest of GEOM_SHARDS on the card: the full
     frame against the one-BVH frame ``ref`` (max abs diff < 1e-4), the
-    forest's kernels against their plain versions at 128x128, then the
-    lucy-class terrain, one BVH and a forest, at the lucy gate."""
-    import shutil
-
-    from simplepath_tpu_torch import build_scene
-    from simplepath_tpu_torch.io.meshgen import displaced_grid, write_ply
+    forest's kernels against their plain versions at 128x128, and the frame
+    through one BVH and through the forest in turns."""
     from simplepath_tpu_torch.parallel.geom_shard import (
         make_geom_mesh, render_image_geom_sharded)
-    from simplepath_tpu_torch.scene import cache
-    from simplepath_tpu_torch.scene.parser import parse_sp
 
     by_path = {}
     mesh = make_geom_mesh(GEOM_SHARDS)
@@ -1511,51 +1533,176 @@ def phase_geom(scene, spp: int, ref) -> dict:
     emit("geom", path="geom_bench_turns", spp=spp, order="A B B A",
          seconds=turns, one_bvh_s=one, forest_s=four,
          forest_over_one_bvh=sum(four) / sum(one))
+    return by_path
 
-    # the lucy-class terrain: a PLY written from a seed, built cold (no
-    # cache entry beside it) and warm, as one BVH and as a forest
-    tdir = os.path.join(OUT_DIR, "terrain")
-    shutil.rmtree(tdir, ignore_errors=True)
-    os.makedirs(tdir)
+
+LUCY_SCENE = os.path.join(HERE, "scenes", "lucy_bench.sp")
+LUCY_MESH = "terrain_28m.ply"
+LUCY_TRIS = 28_880_000          # tools/make_lucy_scene.py's default target
+LUCY_FILM = (1350, 2000)
+# what the scene file must say: its mesh, and its film
+LUCY_SCENE_LINES = (f'file: "{LUCY_MESH}"', f"width: {LUCY_FILM[0]}",
+                    f"height: {LUCY_FILM[1]}")
+# the ray sets sp_closest_count reads on lucy's table
+LUCY_COUNT_CASES = ("primary", "incoherent")
+# the bench's readings set beside lucy's, case for case
+BENCH_KEEP = ("kernel_ms", "plain_ms", "rows_visited", "distinct_internal_rows",
+              "distinct_leaf_rows", "table_bytes", "bound_ms", "bound_by",
+              "visits_per_ray_mean")
+
+
+def host_peak_rss() -> int:
+    """This process's peak resident bytes so far (Linux reports kB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def check_scene_text(path: str = LUCY_SCENE) -> str:
+    """The scene's text, after checking that it names lucy's mesh and the
+    1350x2000 film."""
+    with open(path) as f:
+        text = f.read()
+    missing = [line for line in LUCY_SCENE_LINES if line not in text]
+    if missing:
+        raise ValueError(f"{path} does not say {missing}")
+    return text
+
+
+def lucy_scene(out: str) -> tuple:
+    """The lucy-class stress scene, uncut: its mesh written into ``out``
+    (``io/meshgen.write_terrain``) and scenes/lucy_bench.sp's own text
+    parsed with ``out`` as its base directory, built cold (no cache entry
+    beside the new PLY) and then warm → (scene, readings)."""
+    from simplepath_tpu_torch import build_scene
+    from simplepath_tpu_torch.io.meshgen import grid_triangles, write_terrain
+    from simplepath_tpu_torch.scene import bvh, cache
+    from simplepath_tpu_torch.scene.parser import parse_sp
+
     t0 = time.time()
-    v, f = displaced_grid(TERRAIN_GRID)
-    ply = os.path.join(tdir, "terrain.ply")
-    write_ply(ply, v, f)
-    mesh_s = time.time() - t0
-    text = terrain_text(ply)
-    builds = {}
+    write_terrain(os.path.join(out, LUCY_MESH), LUCY_TRIS,
+                  log=lambda _: None)
+    res = dict(mesh_write_s=time.time() - t0)
+    text = check_scene_text()
+    scene = None
     for load in ("cold", "warm"):
+        del scene                       # one copy on the card at a time
         t0 = time.time()
-        terrain = build_scene(parse_sp(text, base_dir=tdir))
+        scene = build_scene(parse_sp(text, base_dir=out))
         torch.cuda.synchronize()
-        builds[load] = time.time() - t0
+        res[f"build_{load}_s"] = time.time() - t0
         if (cache.LAST_HIT is None) != (load == "cold"):
-            raise AssertionError(f"the {load} terrain build "
+            raise AssertionError(f"the {load} lucy build "
                                  f"{'hit' if load == 'cold' else 'missed'} "
                                  "the geometry cache")
-    t_forest, t_cold, t_warm = forest_builds(
-        terrain, mesh, os.path.join(tdir, "forest_cache"))
-    frames = {}
-    for path, sc, render in (
-            ("terrain_one_bvh", terrain, None),
-            ("geom_terrain", t_forest, render_image_geom_sharded)):
-        res, frames[path] = render_frame(path, sc, 1, render)
-        check_launches(path, res["launches"], nee=True)
-        by_path[path] = res["launches"]
-        rows = sc.bvh.records.shape[:-1]
-        emit("geom", **res, triangles=sc.static.num_triangles,
-             record_rows=list(rows),
-             record_bytes=int(np.prod(list(rows))) * 128 * 4)
-    gate = held_against(frames["geom_terrain"], frames["terrain_one_bvh"])
-    emit("geom", path="geom_terrain", against_one_bvh=gate,
-         mesh_write_s=mesh_s, scene_build_cold_s=builds["cold"],
-         scene_build_warm_s=builds["warm"], forest_build_cold_s=t_cold,
-         forest_build_warm_s=t_warm, width=TERRAIN_SIDE, height=TERRAIN_SIDE,
-         cut_from=[1350, 2000])
+        if load == "cold":
+            res["bvh_builder"] = bvh.LAST_BUILDER
+    st = scene.static
+    if ((st.num_triangles, (st.width, st.height))
+            != (grid_triangles(LUCY_TRIS), LUCY_FILM)):
+        raise AssertionError(f"lucy loaded {st.num_triangles} triangles at "
+                             f"{st.width}x{st.height}")
+    stats = bvh.table_stats(scene.bvh.records.cpu().numpy())
+    # the refs are exact floats up to 2^24 rows (scene/bvh.py)
+    res.update(triangles=st.num_triangles, width=st.width, height=st.height,
+               **stats, rows_under_2_24=stats["rows"] < 1 << 24,
+               host_peak_rss_bytes=host_peak_rss())
+    if not (res["rows_under_2_24"]
+            and stats["stack_needed"] <= stats["kernel_stack"]):
+        raise AssertionError(f"lucy's table is past a limit: {res}")
+    return scene, res
+
+
+def phase_lucy(bench, bench_results: dict) -> tuple:
+    """The lucy-class stress scene at its full size (28,895,202 triangles,
+    1350x2000): builds cold and warm; both kernels against their plain
+    versions on the kernels phase's five ray sets built from lucy's scene,
+    beside the bench's readings (``bench_results``); sp_closest_count on
+    its primary and incoherent rays; the full frame at 1 spp; a 128x128
+    render through the kernels bit-equal to the plain-version render; the
+    full frame through a forest of GEOM_SHARDS at the lucy gate
+    (tests/test_geom_shard.py:133-135).  Each step's seconds in its line.
+    Returns ({path: launches}, kernel results, sp_closest_count results)."""
+    import shutil
+
+    from simplepath_tpu_torch.parallel.geom_shard import (
+        make_geom_mesh, render_image_geom_sharded)
+    from simplepath_tpu_torch.parallel.mesh import CHUNK_RAYS_PER_DEVICE
+    from simplepath_tpu_torch.scene import bvh
+
+    out = os.path.join(OUT_DIR, "lucy")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t0 = time.time()
+    scene, res = lucy_scene(out)
+    emit("lucy", step="scene", **res, s=time.time() - t0)
+    records = scene.bvh.records
+
+    t0 = time.time()
+    reach = reach_of(scene, bench)
+    sets, calls = kernel_ray_sets(scene, reach=reach, stand_in=True)
+    emit("lucy", step="ray_sets", incoherent_reach=reach,
+         wrapper_calls_in_the_chunk=calls, bounces=list(BOUNCES),
+         cases={k: list(v) for k, v in sets.items()},
+         chunk=list(middle_run(scene.static.width, scene.static.height)),
+         s=time.time() - t0)
+    results = {}
+    for kernel in ("closest", "anyhit"):
+        for case, rays in sets[kernel].items():
+            t0 = time.time()
+            r = compare_case(kernel, case, records, rays)
+            bench_case = bench_results.get((kernel, case))
+            r.update(over_bound=r["kernel_ms"] / r["bound_ms"],
+                     bench=bench_case and {k: bench_case[k] for k in BENCH_KEEP},
+                     s=time.time() - t0)
+            emit("lucy", step="kernels", **r)
+            results[(kernel, case)] = r
+    counts = []
+    for case in LUCY_COUNT_CASES:
+        t0 = time.time()
+        counts.append(probe_counts(records, case, sets["closest"][case]))
+        emit("lucy", step="closest_count", **counts[-1], s=time.time() - t0)
+    del sets, records           # the forest's frame holds only the forest
+
+    by_path = {}
+    frame, img = render_frame("lucy", scene, 1)
+    check_launches("lucy", frame["launches"], nee=True)
+    by_path["lucy"] = frame["launches"]
+    n = frame["width"] * frame["height"]
+    emit("lucy", step="frame", **frame, chunks=-(-n // CHUNK_RAYS_PER_DEVICE),
+         last_chunk_padding=-n % CHUNK_RAYS_PER_DEVICE)
+
+    t0 = time.time()
+    parity = parity_case("lucy", scene)
+    if parity["max_abs_diff"] != 0.0:
+        raise AssertionError("lucy's 128x128 kernel render is not bit-equal "
+                             f"to the plain-version render: {parity}")
+    emit("lucy", step="parity", bit_equal=True, s=time.time() - t0)
+
+    mesh = make_geom_mesh(GEOM_SHARDS)
+    forest, cold, warm = forest_builds(scene, mesh,
+                                       os.path.join(out, "forest_cache"))
+    del scene
+    torch.cuda.empty_cache()
+    shards = [bvh.table_stats(r) for r in forest.bvh.records.cpu().numpy()]
+    fframe, fimg = render_frame("lucy_forest", forest, 1,
+                                render_image_geom_sharded)
+    check_launches("lucy_forest", fframe["launches"], nee=True)
+    by_path["lucy_forest"] = fframe["launches"]
+    gate = held_against(fimg, img)
+    emit("lucy", step="forest", **fframe, shards=GEOM_SHARDS,
+         forest_build_cold_s=cold, forest_build_warm_s=warm,
+         padded_rows=int(forest.bvh.records.shape[1]),
+         used_rows=[s["used_rows"] for s in shards],
+         mean_leaf_occupancy=[s["mean_leaf_occupancy"] for s in shards],
+         depth=[s["depth"] for s in shards], against_one_bvh=gate,
+         host_peak_rss_bytes=host_peak_rss())
     if not (gate["share_over_1e3"] < 0.01
             and abs(gate["mean"] - gate["ref_mean"]) < 0.01 * gate["ref_mean"]):
-        raise AssertionError(f"the terrain forest fails the lucy gate: {gate}")
-    return by_path
+        raise AssertionError(f"lucy's forest fails the lucy gate: {gate}")
+    del forest
+    shutil.rmtree(out)              # gigabytes of PLY and cache entries
+    torch.cuda.empty_cache()
+    return by_path, results, counts
 
 
 RANKS = 2
@@ -1793,7 +1940,7 @@ def run_topology(job: str, out: str) -> None:
     res.update(load_s=time.time() - t0,
                record_rows=int(scene.bvh.records.shape[0]))
     if job == "full":
-        res["kernels"] = list(phase_kernels(scene, kernel_ray_sets(scene)).values())
+        res["kernels"] = list(phase_kernels(scene, kernel_ray_sets(scene)[0]).values())
         res["parity"] = parity_case("iterative_rrnee", scene)
         if res["parity"]["max_abs_diff"] != 0.0:
             raise AssertionError("the 128x128 kernel render is not bit-equal "
@@ -1951,16 +2098,18 @@ def visit_body_entry(name: str, bodies: list, launches: dict) -> dict:
                        bodies, launches, BODY_KEEP)
 
 
+COUNT_KEEP = ("case", "n", "kernel_ms", "closest_ms_in_turns", "counting_cost",
+              "plain_ms", "bound_ms", "visits_per_ray_mean",
+              "visits_per_warp_mean", "lock_step_share", "n_push_shares")
+
+
 def probe_entries(probes: dict, launches: dict) -> list:
     counts, chase = probes["closest_count"], probes["row_chase"]
     main = next(c for c in counts if c["case"] == "primary")
     one = next(c for c in chase if c["chains"] == 1)
     return [
         probe_entry("closest_count", {**main, "ms": main["kernel_ms"]}, counts,
-                    launches, ("case", "n", "kernel_ms", "closest_ms_in_turns",
-                               "counting_cost", "plain_ms", "bound_ms",
-                               "visits_per_ray_mean", "visits_per_warp_mean",
-                               "lock_step_share", "n_push_shares")),
+                    launches, COUNT_KEEP),
         probe_entry("row_chase", {**one, "ms": one["kernel_ms"]}, chase,
                     launches, ("chains", "hops", "kernel_ms", "ns_per_hop",
                                "distinct_rows", "bound_ms")),
@@ -1969,14 +2118,16 @@ def probe_entries(probes: dict, launches: dict) -> list:
 
 
 def kernels_line(results: dict, launches: dict, by_path: dict,
-                 topologies: tuple = ({}, {}, {}), probes: dict | None = None
-                 ) -> dict:
+                 topologies: tuple = ({}, {}, {}), probes: dict | None = None,
+                 lucy: tuple | None = None) -> dict:
     """The summary object: each kernel at this process's topology (named
-    ``closest`` / ``anyhit``, launches from the render phase's frame) and at
-    every other topology the topology phase drove (``closest_w16_k12``, ...,
-    launches from that topology's frame); the three measuring kernels
-    (``closest_count``, ``row_chase``, ``visit_body``, and the visit body at
-    the other topologies, ``visit_body_w16_k12``, ...)."""
+    ``closest`` / ``anyhit``, launches from the render phase's frame), on
+    lucy's table (``closest_lucy`` / ``anyhit_lucy`` / ``closest_count_lucy``,
+    launches from lucy's 1-spp frame) and at every other topology the
+    topology phase drove (``closest_w16_k12``, ..., launches from that
+    topology's frame); the three measuring kernels (``closest_count``,
+    ``row_chase``, ``visit_body``, and the visit body at the other
+    topologies, ``visit_body_w16_k12``, ...)."""
     from simplepath_tpu_torch.scene.bvh import LEAF_SIZE, WIDTH
     entries = []
     if results:
@@ -1984,6 +2135,15 @@ def kernels_line(results: dict, launches: dict, by_path: dict,
                     for k in ("closest", "anyhit")]
     if probes:
         entries += probe_entries(probes, launches)
+    if lucy:
+        lucy_launches, lucy_results, counts = lucy
+        entries += [kernel_entry(k, f"{k}_lucy", lucy_results,
+                                 lucy_launches["lucy"], WIDTH, LEAF_SIZE)
+                    for k in ("closest", "anyhit")]
+        main = next(c for c in counts if c["case"] == "primary")
+        entries.append(probe_entry(
+            "closest_count_lucy", {**main, "ms": main["kernel_ms"]}, counts,
+            lucy_launches["lucy"], COUNT_KEEP))
     topo_results, topo_launches, topo_bodies = topologies
     for topo, res in topo_results.items():
         knobs = TOPOLOGIES[topo]
@@ -2043,6 +2203,8 @@ def run(args, phases, progress: dict) -> int:
     import simplepath_tpu_torch as sp
     from simplepath_tpu_torch.scene import bvh, cache
 
+    started = time.time()
+
     def timed(phase, fn, *args):
         progress["phase"] = phase
         before = dict(launch_us_before=host_launch_us(),
@@ -2067,7 +2229,7 @@ def run(args, phases, progress: dict) -> int:
     if "paths" in phases or "parity" in phases:
         ibl = timed("ibl_scene", ibl_bench_scene)
     if "kernels" in phases or "probes" in phases:
-        sets = timed("ray_sets", kernel_ray_sets, scene)
+        sets = timed("ray_sets", kernel_ray_sets, scene)[0]
     if "kernels" in phases:
         results = timed("kernels", phase_kernels, scene, sets)
     if "probes" in phases:
@@ -2092,6 +2254,10 @@ def run(args, phases, progress: dict) -> int:
             render_img = render_image_sharded(scene, args.spp, prng_key(0))
         by_path.update(timed("geom", phase_geom, scene, args.spp, render_img))
         del render_img
+    lucy = None
+    if "lucy" in phases:
+        lucy = timed("lucy", phase_lucy, scene, results)
+        by_path.update(lucy[0])
     if "ranks" in phases:
         by_path.update(timed("ranks", phase_ranks, scene))
     topologies = ({}, {}, {})
@@ -2099,10 +2265,11 @@ def run(args, phases, progress: dict) -> int:
         topologies = timed("topology", phase_topology)
         by_path.update({f"topology_{t}": n for t, n in topologies[1].items()})
 
-    if results or probes or topologies[0]:
+    emit("seconds", of="run", s=time.time() - started)
+    if results or probes or topologies[0] or lucy:
         print(json.dumps(kernels_line(
             results, by_path.get("iterative_rrnee", {}), by_path, topologies,
-            probes)), flush=True)
+            probes, lucy)), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

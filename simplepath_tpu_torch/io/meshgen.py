@@ -12,10 +12,13 @@ reference's read.
 
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
 
-__all__ = ["icosphere", "displaced_blob", "displaced_grid", "write_ply",
-           "write_stl"]
+__all__ = ["icosphere", "displaced_blob", "displaced_grid", "grid_side",
+           "grid_triangles", "write_terrain", "write_ply", "write_stl"]
 
 
 def icosphere(subdivisions: int = 3) -> tuple[np.ndarray, np.ndarray]:
@@ -104,6 +107,35 @@ def displaced_grid(n: int, extent: float = 1000.0, amplitude: float = 120.0,
     faces = np.concatenate([np.stack([q00, q10, q11], axis=1),
                             np.stack([q00, q11, q01], axis=1)])
     return v, faces
+
+
+def grid_side(tris: int) -> int:
+    """The side n of the displaced grid written for ``tris`` triangles, by
+    tools/make_lucy_scene.py's rule, so that 2 (n - 1)^2 >= tris."""
+    return int((tris / 2.0) ** 0.5) + 2
+
+
+def grid_triangles(tris: int) -> int:
+    """The triangles of the grid written for ``tris``: 2 (n - 1)^2."""
+    return 2 * (grid_side(tris) - 1) ** 2
+
+
+def write_terrain(path: str, tris: int, log=print) -> str:
+    """Write the displaced grid for ``tris`` triangles as binary PLY to
+    ``path`` (an existing file is kept) → ``path``."""
+    if os.path.exists(path):
+        log(f"{path} already exists")
+        return path
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    t0 = time.time()
+    v, f = displaced_grid(grid_side(tris))
+    log(f"generated {len(f):,} tris / {len(v):,} verts in "
+        f"{time.time() - t0:.1f}s")
+    t0 = time.time()
+    write_ply(path, v, f)
+    log(f"wrote {path} ({os.path.getsize(path) / 1e6:.0f} MB) in "
+        f"{time.time() - t0:.1f}s")
+    return path
 
 
 def write_ply(path, vertices: np.ndarray, faces: np.ndarray) -> None:

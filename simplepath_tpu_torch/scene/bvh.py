@@ -51,8 +51,8 @@ import os
 
 import numpy as np
 
-__all__ = ["build_bvh_wide", "build_nodes", "tree_depth", "pack_records",
-           "make_packed_records",
+__all__ = ["build_bvh_wide", "build_nodes", "tree_depth", "table_stats",
+           "pack_records", "make_packed_records",
            "LEAF_SIZE", "WIDTH", "RECORD_WIDTH", "LEAF_ROWS"]
 
 # Topology knobs (A/B-able via env, read once at import).  The CUDA kernels
@@ -192,6 +192,36 @@ def tree_depth(child_meta: np.ndarray) -> int:
         kids = child_meta[frontier][:, :, 0].ravel()
         frontier = kids[kids >= 0].astype(np.int32)
     return depth
+
+
+def table_stats(records) -> dict:
+    """What a packed record table holds, read off the table itself (a
+    table loaded from the geometry cache carries no node arrays): the
+    internal levels from row 0 to the deepest leaf (what ``tree_depth``
+    counts), the stack slots that depth needs against the kernels'
+    ``KERNEL_STACK``, the internal rows, the leaves and their mean
+    occupancy (the count ``pack_records`` writes at flat offset 9K+2 of a
+    leaf's rows), and the rows in use (zero rows past them pad a shard of a
+    forest)."""
+    rec = np.asarray(records)
+    refs = rec[:, 6 * WIDTH:7 * WIDTH]
+    depth, internal, firsts = 0, 0, []
+    frontier = np.array([0], np.int64)
+    while frontier.size:            # only internal rows are read as refs
+        depth += 1
+        internal += frontier.size
+        r = refs[frontier].ravel()
+        firsts.append(-r[r < 0].astype(np.int64) - 1)
+        frontier = r[r > 0].astype(np.int64) - 1
+    firsts = np.sort(np.concatenate(firsts))       # in row order
+    row, col = divmod(9 * LEAF_SIZE + 2, RECORD_WIDTH)
+    counts = rec[firsts + row, col]
+    return dict(rows=int(rec.shape[0]), bytes=int(rec.nbytes), depth=depth,
+                stack_needed=depth * (WIDTH - 1) + 1, kernel_stack=_stack_limit(),
+                internal_rows=internal, leaves=int(firsts.size),
+                used_rows=internal + int(firsts.size) * LEAF_ROWS,
+                mean_leaf_occupancy=float(counts.mean()) if counts.size else 0.0,
+                leaf_size=LEAF_SIZE)
 
 
 def _stack_limit() -> int:

@@ -117,7 +117,7 @@ def main() -> int:
 
     scene = sp.load_scene(cs.SCENE)
     records = scene.bvh.records
-    sets = cs.kernel_ray_sets(scene)
+    sets = cs.kernel_ray_sets(scene)[0]
     order = list(libs)
     for kernel in ("closest", "anyhit"):
         plain = ct.closest_plain if kernel == "closest" else ct.anyhit_plain

@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's main path: profile the
-render of one 65,536-ray chunk of the bench scene (scenes/bunny_bench.sp) on
-the GPU.
+render of one 65,536-ray chunk of a scene (default the bench,
+scenes/bunny_bench.sp) on the GPU: the 65,536 pixels around the middle of
+its frame (chip_smoke.middle_run; the bench's rows 480-543).
 
-    python3 tools/torch_profile_render.py [--spp 1] [--repeat 3]
+    python3 tools/torch_profile_render.py [--spp 1] [--repeat 3] [--scene PATH]
+    python3 tools/torch_profile_render.py --scene scenes/lucy_bench.sp
+        # after tools/torch_make_lucy_scene.py (and, for a warm load,
+        # tools/torch_lucy_bench.py)
 
 Prints one JSON object per line:
 
@@ -11,8 +15,9 @@ Prints one JSON object per line:
             times (the spread says how far to trust a difference), and once
             under the profiler (what the instrumentation costs)
   device    device-busy milliseconds (sum of CUDA kernel times), its share of
-            the wall time, the number of kernel launches, and the share of
-            the two traversal kernels
+            the profiled wall time and of the median wall time without the
+            profiler (the card's busy share), the number of kernel launches,
+            and the share of the two traversal kernels
   stages    host milliseconds spent inside each stage of the bounce loop
             (host clock around the stage's function, no synchronisation, in a
             run without the profiler) — the port is launch-bound, so host
@@ -28,7 +33,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
+import statistics
 import sys
 import time
 
@@ -38,6 +43,8 @@ from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
 
 # (module, attribute) → stage label; each is wrapped with a host timer
 STAGES = {
@@ -75,6 +82,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--spp", type=int, default=1)
     ap.add_argument("--repeat", type=int, default=3)
+    ap.add_argument("--scene", default=cs.SCENE)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -83,15 +91,20 @@ def main() -> int:
     import simplepath_tpu_torch as sp
     from simplepath_tpu_torch.core.rng import prng_key
     from simplepath_tpu_torch.render import cuda_traverse as ct
+    from simplepath_tpu_torch.scene import cache
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    scene = sp.load_scene(os.path.join(ROOT, "scenes", "bunny_bench.sp"))
-    w = scene.static.width
-    # the 64 rows around the middle of the frame: blobs, plane and shadows
-    lin = torch.arange(480 * w, 544 * w, device=scene.device)
-    xs, ys = lin % w, lin // w
+    smi = cs.nvidia_smi_line()
+    t0 = time.time()
+    scene = sp.load_scene(args.scene)
+    torch.cuda.synchronize()
+    load = {"scene": os.path.relpath(os.path.abspath(args.scene), ROOT),
+            "load_s": time.time() - t0,
+            "load": "warm" if cache.LAST_HIT else "cold",
+            "triangles": scene.static.num_triangles,
+            "record_rows": int(scene.bvh.records.shape[0])}
+    st = scene.static
+    lin = torch.arange(*cs.middle_run(st.width, st.height), device=scene.device)
+    xs, ys = lin % st.width, lin // st.width
 
     def render(seed):
         out = sp.render_rays(scene, xs, ys, args.spp, prng_key(seed))
@@ -110,7 +123,8 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         render(100)
     profiled_wall = time.time() - t0
-    print(json.dumps({"wall": {"card": smi, "rays": int(lin.numel()),
+    print(json.dumps({"wall": {"card": smi, **load, "rays": int(lin.numel()),
+                               "pixels": [int(lin[0]), int(lin[-1]) + 1],
                                "spp": args.spp, "seconds": walls,
                                "seconds_under_profiler": profiled_wall,
                                "traversal_launches": dict(ct.launch_counts)}}))
@@ -124,6 +138,7 @@ def main() -> int:
     trav_ms = sum(ms for k, ms, _ in dev if "traverse_kernel" in k)
     print(json.dumps({"device": {
         "busy_ms": busy_ms, "busy_share_of_profiled_wall": busy_ms / 1e3 / profiled_wall,
+        "busy_share_of_wall": busy_ms / 1e3 / statistics.median(walls),
         "kernel_launches": launches, "traversal_ms": trav_ms,
         "traversal_share_of_busy": trav_ms / busy_ms if busy_ms else None}}))
     top = sorted(dev, key=lambda x: -x[1])[:10]
