@@ -41,6 +41,19 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            in passes of 4 with a checkpoint; a render cut after its first
            pass and resumed by the CLI equals the uninterrupted one bit for
            bit
+  golden   the 15 goldens of tests/golden/manifest.json but the 512x512
+           headline, rendered by render_image under the golden tests' key
+           (17) and held to the C++ reference's PFMs with the gates of
+           tests/test_golden_parity.py: the 11 scenes of matched_floors.json
+           at the golden's spp (128-256) under the matched gates (mean
+           within max(0.005, 3x the floor's), p90 and p99 under 1.5x the
+           floor) and the blurred ones (mean within 5 %, 3x3-blurred p90
+           < 0.35); the three IBL scenes at 128 spp under the blurred gates;
+           mandelbrot at 1 spp (> 99 % of pixels within 2e-3); four scenes
+           at a time, each in a worker process on the one card (the
+           bounce loop is host-bound); one line a scene (seconds, launches,
+           each metric beside its gate); the four mesh scenes launch both
+           kernels, the others none
   train    diff.grad on the bench scene at depth 10: 3 make_train_step calls
            (plain SGD, the albedo trained) on 65,536 pixels (every 4th row
            and column) at 1 spp toward the port's own render at the true
@@ -130,7 +143,7 @@ SCENE = os.path.join(HERE, "scenes", "bunny_bench.sp")
 OUT_DIR = os.path.join(HERE, "chip_smoke_out")
 IBL_TEST_SCENE = os.path.join(HERE, "tests", "scenes", "g_ibl_rrnee.sp")
 PHASES = ("device", "build", "kernels", "probes", "render", "paths", "parity",
-          "cli", "train", "geom", "lucy", "ranks", "topology")
+          "cli", "golden", "train", "geom", "lucy", "ranks", "topology")
 # the traced integrators besides the flagship, and whether each has NEE
 # (next-event estimation: shadow rays through sp_anyhit)
 PATHS = {"direct_lighting": True, "brute_force": False,
@@ -1144,6 +1157,215 @@ def phase_cli() -> None:
          resumed_equals_whole=a == b, pfm_bytes=len(a))
     if a != b:
         raise AssertionError("the resumed film differs from the uninterrupted one")
+
+
+# The golden tiers of tests/test_golden_parity.py: PFMs rendered by the C++
+# reference binary, the port's render held to them statistically.  The gate
+# math below mirrors that file and tools/headline_calibrate.py line for line;
+# the golden tools import it from here.
+GOLDEN = os.path.join(HERE, "tests", "golden")
+GOLDEN_SCENES = os.path.join(HERE, "tests", "scenes")
+GOLDEN_KEY = 17                 # the golden tests' render key
+BLURRED_SPP_CAP = 32            # the blurred tier's spp (:43); the IBL scenes'
+IBL_SPP_CAP = 128               # (:51): their 3x2-texel sun needs more
+MESH_GOLDENS = ("g_blob", "g_combo_ibl", "g_mesh_ply", "g_mesh_stl")
+# the scenes' bounce loops are host-bound, the card idle most of the time:
+# four processes share it (the chip's host has 8 cores)
+GOLDEN_WORKERS = 4
+GOLDEN_TIMEOUT_S = 900
+
+
+def box3(img):
+    """3x3 box blur, edges repeated (test_golden_parity.py:33-41)."""
+    p = np.pad(img, ((1, 1), (1, 1), (0, 0)), mode="edge")
+    out = np.zeros_like(img)
+    for dy in (0, 1, 2):
+        for dx in (0, 1, 2):
+            out += p[dy:dy + img.shape[0], dx:dx + img.shape[1]]
+    return out / 9.0
+
+
+def rel_err(ref, img, mean_ref: float | None = None):
+    """Per-pixel error, channels averaged, over the reference's radiance
+    floored at 5 % of ``mean_ref`` (default ``ref``'s own mean; the blurred
+    tier passes the unblurred golden's) (test_golden_parity.py:148-151)."""
+    if mean_ref is None:
+        mean_ref = float(ref.mean())
+    scale = np.maximum(ref.mean(axis=2), 0.05 * max(mean_ref, 1e-3))
+    return np.abs(ref - img).mean(axis=2) / scale
+
+
+def blurred_gates(ref, ours, integrator: str) -> dict:
+    """test_golden's gates (test_golden_parity.py:64-81) → {metric: (value,
+    gate, passed)}: for mandelbrot the share of pixels within 2e-3 (> 0.99),
+    else the mean within 5 % and the blurred p90 relative error < 0.35."""
+    if integrator == "mandelbrot":
+        # escape-boundary pixels can flip an iteration under another fma
+        # contraction
+        close = float((np.abs(ours - ref).max(axis=2) < 2e-3).mean())
+        return {"close_share": (close, 0.99, close > 0.99)}
+    mean_ref, mean_ours = float(ref.mean()), float(ours.mean())
+    rel_mean = abs(mean_ours - mean_ref) / max(mean_ref, 1e-6)
+    p90 = float(np.percentile(rel_err(box3(ref), box3(ours), mean_ref), 90))
+    return {"rel_mean": (rel_mean, 0.05, rel_mean < 0.05),
+            "blur_p90": (p90, 0.35, p90 < 0.35)}
+
+
+def matched_metrics(ref, img) -> dict:
+    """The matched-spp comparison (test_golden_parity.py:107-115), as
+    tools/calibrate_floors.py's floor_metrics takes it with ``ref`` as a."""
+    mean_ref = float(ref.mean())
+    rel_mean = abs(float(img.mean()) - mean_ref) / max(mean_ref, 1e-6)
+    rel = rel_err(ref, img)
+    return {"rel_mean": rel_mean, "p90": float(np.percentile(rel, 90)),
+            "p99": float(np.percentile(rel, 99))}
+
+
+def matched_gates(ref, img, floor: dict) -> dict:
+    """test_golden_matched_spp's gates (test_golden_parity.py:107-117) →
+    {metric: (value, gate, passed)}: the mean within max(0.005, 3x the
+    floor's), p90 and p99 under 1.5x the floor's."""
+    got = matched_metrics(ref, img)
+    gate = {"rel_mean": max(0.005, 3 * floor["rel_mean"]),
+            "p90": 1.5 * floor["p90"], "p99": 1.5 * floor["p99"]}
+    return {k: (got[k], gate[k], got[k] < gate[k]) for k in gate}
+
+
+def firefly_sym_p99(a, b, rel) -> tuple:
+    """p99 of ``rel`` without the union of each image's brightest 0.05 %
+    pixels → (p99, pixels left out) (tools/headline_calibrate.py:88-94)."""
+    la, lb = a.mean(axis=2), b.mean(axis=2)
+    keep = (la < np.quantile(la, 0.9995)) & (lb < np.quantile(lb, 0.9995))
+    return float(np.percentile(rel[keep], 99)), int((~keep).sum())
+
+
+def headline_metrics(a, b, label: str) -> dict:
+    """tools/headline_calibrate.py's metrics (:73-100), ``a`` the reference
+    side, ``b`` ours."""
+    mean_a, mean_b = float(a.mean()), float(b.mean())
+    rel = rel_err(a, b)
+    ff_p99, excluded = firefly_sym_p99(a, b, rel)
+    return {"label": label, "rel_mean": abs(mean_b - mean_a) / max(mean_a, 1e-6),
+            "p50": float(np.percentile(rel, 50)),
+            "p90": float(np.percentile(rel, 90)),
+            "p99": float(np.percentile(rel, 99)),
+            "blur_p99": float(np.percentile(rel_err(box3(a), box3(b)), 99)),
+            "firefly_sym_p99": ff_p99, "n_excluded": excluded}
+
+
+def headline_gates(metrics: dict, floor: dict) -> dict:
+    """test_headline_spp_matched's gates (test_golden_parity.py:187-194) →
+    {metric: (value, gate, passed)}: the mean within 1 %, the rest at 1.5x
+    the calibration floor."""
+    gate = {"rel_mean": 0.01, "p50": 1.5 * floor.get("p50", 0.139),
+            "p90": 1.5 * floor.get("p90", 0.875), "p99": 1.5 * floor["p99"],
+            "blur_p99": 1.5 * floor["blur_p99"]}
+    return {k: (metrics[k], g, metrics[k] <= g) for k, g in gate.items()}
+
+
+def failed_gates(gates: dict) -> list:
+    return [f"{k}={v:.4f} (gate {g:.4f})" for k, (v, g, ok) in gates.items()
+            if not ok]
+
+
+def golden_json(name: str) -> dict:
+    with open(os.path.join(GOLDEN, name)) as f:
+        return json.load(f)
+
+
+def golden_plan() -> list:
+    """(scene, spp, matched floor or None) for every golden but the
+    headline: the scenes of matched_floors.json at the golden's own spp
+    (both tiers on one render), mandelbrot at its 1 spp, the rest at the
+    blurred tier's spp (128 for the IBL scenes)."""
+    manifest, floors = golden_json("manifest.json"), golden_json("matched_floors.json")
+    plan = []
+    for name in sorted(n for n in manifest if manifest[n].get("tier") is None):
+        spp = manifest[name]["spp"]
+        if name not in floors and manifest[name]["integrator"] != "mandelbrot":
+            spp = min(spp, IBL_SPP_CAP if "ibl" in name else BLURRED_SPP_CAP)
+        plan.append((name, spp, floors.get(name)))
+    return plan
+
+
+def golden_render(name: str, spp: int, key: int, device=None) -> tuple:
+    """tests/scenes/<name>.sp loaded and rendered by ``render_image`` under
+    ``prng_key(key)``, the launch counts set to 0 just before the render →
+    (image as numpy, seconds, launches)."""
+    import simplepath_tpu_torch as sp
+    from simplepath_tpu_torch.core.rng import prng_key
+    from simplepath_tpu_torch.render.film import render_image
+
+    scene = sp.load_scene(os.path.join(GOLDEN_SCENES, name + ".sp"),
+                          device=device)
+    if scene.device.type == "cuda":
+        torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    img = render_image(scene, spp, prng_key(key, scene.device),
+                       device=scene.device).cpu().numpy()
+    return img, time.time() - t0, frame_launches(name)
+
+
+def golden_scene(name: str, spp: int, floor: dict | None, device=None) -> dict:
+    """One golden rendered by the port under the golden tests' key and held
+    to the reference's PFM: the blurred tier's gates, and the matched
+    tier's where ``floor`` is given → what the phase prints."""
+    from simplepath_tpu_torch.io.pfm import read_pfm
+
+    img, seconds, launches = golden_render(name, spp, GOLDEN_KEY, device)
+    ref = read_pfm(os.path.join(GOLDEN, name + ".pfm"))
+    if img.shape != ref.shape:
+        raise AssertionError(f"{name}: image shape {img.shape}, golden "
+                             f"{ref.shape}")
+    integrator = golden_json("manifest.json")[name]["integrator"]
+    gates = blurred_gates(ref, img, integrator)
+    if floor is not None:
+        gates.update({f"matched_{k}": v
+                      for k, v in matched_gates(ref, img, floor).items()})
+    return dict(scene=name, integrator=integrator, spp=spp, seconds=seconds,
+                launches=launches,
+                gates={k: [v, g] for k, (v, g, _) in gates.items()},
+                failed=failed_gates(gates))
+
+
+def phase_golden(device=None) -> dict:
+    """The 15 goldens of tests/golden/manifest.json but the headline,
+    rendered on ``device`` (None: the card) and held to the reference's
+    PFMs (see golden_plan), a scene at a time in each of GOLDEN_WORKERS
+    processes, the flagship's scenes first (its bounce loop is the
+    longest); the mesh scenes launch both kernels, the others none.  Every
+    scene is printed; a failed gate fails the phase after the last."""
+    import multiprocessing
+
+    manifest = golden_json("manifest.json")
+    plan = sorted(golden_plan(), reverse=True, key=lambda job: (
+        manifest[job[0]]["integrator"] == "iterative_rrnee",
+        job[1] * manifest[job[0]]["max_depth"]))
+    if device is None:      # built once here, not by every worker
+        from simplepath_tpu_torch.render import cuda_traverse as ct
+        ct.build_library()
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(GOLDEN_WORKERS, len(plan))) as pool:
+        results = pool.starmap_async(
+            golden_scene, [(*job, device) for job in plan],
+            chunksize=1).get(timeout=GOLDEN_TIMEOUT_S)
+    total = {"closest": 0, "anyhit": 0}
+    failed = []
+    for res in results:
+        emit("golden", **res)
+        name = res["scene"]
+        launched = [res["launches"][k] > 0 for k in total]
+        if launched != [name in MESH_GOLDENS] * 2:
+            raise AssertionError(f"{name}: launches {res['launches']}; a "
+                                 "mesh golden launches both kernels, "
+                                 "another neither")
+        for k in total:
+            total[k] += res["launches"][k]
+        failed += [f"{name}: {f}" for f in res["failed"]]
+    if failed:
+        raise AssertionError("golden gates failed: " + "; ".join(failed))
+    return {"golden": total}
 
 
 TRAIN_SPP = 1
@@ -2245,6 +2467,8 @@ def run(args, phases, progress: dict) -> int:
         timed("parity", phase_parity, scene, ibl)
     if "cli" in phases:
         timed("cli", phase_cli)
+    if "golden" in phases:
+        by_path.update(timed("golden", phase_golden))
     if "train" in phases:
         by_path["train"] = timed("train", phase_train, scene)
     if "geom" in phases:
