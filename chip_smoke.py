@@ -16,7 +16,10 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            N=65,499 seeded incoherent rays (~10 % dead lanes) and the real
            wavefronts of bounces 0, 2 and 5 of one rendered 65,536-ray chunk:
            exact valid/idx/occluded, t rtol 1e-5, beta/gamma rtol 1e-4;
-           times, visits a ray, lane-step shares, bytes the visits read
+           times, visits a ray, lane-step shares, bytes the visits read;
+           the one-ray forms (traverse.scene_intersect / scene_intersect_p)
+           on 16 primary rays, one launch a call, each answer the batch
+           form's through the plain versions
   probes   the three measuring kernels (render/cuda_probes.py), each against
            its plain version: sp_closest_count on the five ray sets (counts
            and n_push histograms exactly equal, hits bit-equal to
@@ -65,14 +68,20 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            checkpoint would save; on a 64x64 crop the gradient through the
            kernels equals the one through their plain versions (rtol 1e-4,
            atol 1e-6), and matches central differences (4 spp) on the
-           largest albedo and light-radiance gradients
+           largest albedo and light-radiance gradients; then the gradient
+           parity on the crop's middle 32x32 (both gradients finite) for
+           each other traced integrator on the bench and both
+           image-based-light paths, from each scene's own parameters toward
+           a flat 0.25: seconds, peak memory, the largest leaf difference,
+           sp_closest launched on every path and sp_anyhit exactly where
+           there is NEE
   geom     the bench scene as a BVH forest of 4 shards on the card
            (parallel/geom_shard.py: both kernels once a shard and query,
-           then the combine), the flagship full frame at --spp samples
-           against the render phase's image (max abs diff < 1e-4), launches,
-           peak memory, forest build cold and warm through the cache; the
-           forest's kernels vs plain versions at 128x128; the same frame
-           through one BVH and through the forest, timed in turns (A B B A)
+           then the combine): forest build cold and warm through the cache;
+           the flagship full frame at 1 spp through one BVH and through the
+           forest, timed in turns (A B B A), the forest's frame against the
+           one-BVH frame (max abs diff < 1e-4), its launches and peak memory;
+           the forest's kernels vs plain versions at 128x128
   lucy     the lucy-class stress scene at its full size: scenes/lucy_bench.sp
            (1350x2000, depth 10) over a 28,895,202-triangle terrain
            (io/meshgen.displaced_grid(3802), written by
@@ -100,9 +109,13 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            (the albedo), the first's loss and albedo against the
            one-process step (rtol 1e-5 / atol 1e-5)
   topology the kernels at the BVH topologies other than the default
-           (SIMPLEPATH_BVH_WIDTH=16; SIMPLEPATH_BVH_LEAF=24), each in fresh
-           processes, since the knobs are read at import: the bench loaded
-           and that topology's library built; both kernels against their
+           (SIMPLEPATH_BVH_WIDTH=16; SIMPLEPATH_BVH_LEAF=24; and, checked
+           without the visit body or the frame in turns, the leaf layouts
+           (W, K) = (8, 5), (8, 29), (16, 29)), each in a fresh process,
+           since the knobs are read at import, one at a time on the card
+           while the next one starts up: the bench loaded
+           and that topology's library built, registers and spills of every
+           kernel in it from ptxas; both kernels against their
            plain versions on the kernels phase's five ray sets (times, rows
            visited, the bound from W and K); a 128x128 flagship render
            through the kernels bit-equal to the plain-version render; the
@@ -110,8 +123,8 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            within max abs diff 1e-4 of the default topology's frame, its
            seconds timed in turns with the default topology's (processes in
            the order default, W=16, K=24, K=24, W=16, default) and its
-           launches of each kernel; the visit-body probe's four modes at that
-           topology (the probes phase's readings)
+           launches of each kernel; the visit-body probe's four modes at W=16
+           and K=24 (the probes phase's readings)
 
 Each phase's seconds follow it on a line of their own, with what the host
 took to enqueue one tiny kernel, and the live Python objects, just before
@@ -129,6 +142,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -544,6 +558,43 @@ def phase_kernels(scene, sets: dict) -> dict:
     return results
 
 
+def one_ray_forms(scene, n: int = 16) -> dict:
+    """``scene_intersect`` / ``scene_intersect_p``, the one-ray forms, on
+    ``n`` of the primary rays, spread over the frame: each call launches its
+    kernel once (N = 1), and each answer is the batch form's for that ray
+    through the plain versions (valid, kind, idx and occlusion exact; t,
+    beta, gamma at compare_case's tolerances)."""
+    from simplepath_tpu_torch.render import cuda_traverse as ct
+    from simplepath_tpu_torch.render import traverse as tr
+    rays = [a[::a.shape[0] // n][:n] for a in primary_rays(scene)]
+    with ct.plain_versions():
+        ref = tr.scene_intersect_batch(scene, *rays)
+        ref_p = tr.scene_intersect_p_batch(scene, *rays)
+    ct.reset_launch_counts()
+    hits = [tr.scene_intersect(scene, *(a[i] for a in rays)) for i in range(n)]
+    occluded = torch.stack([tr.scene_intersect_p(scene, *(a[i] for a in rays))
+                            for i in range(n)])
+    torch.cuda.synchronize()
+    launches = dict(ct.launch_counts)
+    out = tr.Hit(*(torch.stack(f) for f in zip(*hits)))
+    v = ref.valid
+    res = dict(check="one_ray_forms", n=n, launches=launches,
+               hits=int(v.sum()), occluded=int(ref_p.sum()),
+               valid_mismatches=int((out.valid != v).sum()),
+               kind_mismatches=int((out.kind[v] != ref.kind[v]).sum()),
+               idx_mismatches=int((out.idx[v] != ref.idx[v]).sum()),
+               occ_mismatches=int((occluded != ref_p).sum()))
+    for f, rtol, atol in (("t", 1e-5, 1e-6), ("beta", 1e-4, 1e-5),
+                          ("gamma", 1e-4, 1e-5)):
+        a, b = getattr(out, f)[v], getattr(ref, f)[v]
+        res[f"{f}_mismatches"] = int((~torch.isclose(a, b, rtol=rtol, atol=atol)).sum())
+    emit("kernels", **res)
+    bad = {k: x for k, x in res.items() if k.endswith("_mismatches") and x}
+    if bad or launches["closest"] != n or launches["anyhit"] != n or not res["hits"]:
+        raise AssertionError(f"the one-ray forms: {res}")
+    return launches
+
+
 # --------------------------------------------------------------- probes
 
 def visit_readings(internal, leaf, by_push, lanes_per_ray: int) -> dict:
@@ -779,7 +830,7 @@ def phase_probes(scene, sets: dict) -> dict:
 
 
 def phase_render(scene, spp: int, load_s: float, builder: str | None,
-                 geometry_cache: str | None) -> tuple:
+                 geometry_cache: str | None) -> dict:
     from simplepath_tpu_torch.core.rng import prng_key
     from simplepath_tpu_torch.io.pfm import write_image
     from simplepath_tpu_torch.parallel.mesh import render_image_sharded
@@ -823,7 +874,7 @@ def phase_render(scene, spp: int, load_s: float, builder: str | None,
          max_memory_allocated=peak,
          rho_table_launches_per_render_rays=cuda_launches(
              lambda: build_rho_tables(scene.materials)))
-    return launches, img
+    return launches
 
 
 def write_ibl_map(path: str, seed: int = 0) -> None:
@@ -1382,6 +1433,7 @@ LEAF_GROUPS = {"every_leaf": None, "mat_albedo": ("mat_albedo",),
                                          "mat_cc_color"),
                "camera": CAMERA_LEAVES, "light_radiance": ("light_radiance",)}
 CROP = (480, 544)            # the 64x64 crop of the gradient checks
+PATH_CROP = (496, 528)       # its middle 32x32, for every other traced path
 
 
 def bench_batch(scene, every: int = 4):
@@ -1394,8 +1446,8 @@ def bench_batch(scene, every: int = 4):
     return xs.reshape(-1), ys.reshape(-1)
 
 
-def crop_batch(scene):
-    r = torch.arange(*CROP, device=scene.device)
+def crop_batch(scene, crop: tuple = CROP):
+    r = torch.arange(*crop, device=scene.device)
     ys, xs = torch.meshgrid(r, r, indexing="ij")
     return xs.reshape(-1), ys.reshape(-1)
 
@@ -1506,28 +1558,69 @@ def step_cost(scene, params, target, xs, ys, key) -> dict:
     return res
 
 
-def grad_parity(scene, params, target, xs, ys, key) -> None:
+def grad_parity(scene, params, target, xs, ys, key,
+                path: str = "iterative_rrnee") -> dict:
     """The crop's gradient through the CUDA kernels and through their plain
     versions, both on the card: every leaf allclose at rtol 1e-4, atol 1e-6
     (the backward of the gathers accumulates with atomics, so the order of
-    its sums varies)."""
+    its sums varies), both gradients finite.  The kernels' run is timed,
+    its peak memory read and its launches counted (set to 0 just before it
+    and read just after)."""
     from simplepath_tpu_torch.diff import grad as G
     from simplepath_tpu_torch.render import cuda_traverse as ct
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ct.reset_launch_counts()
+    t0 = time.time()
     loss_k, g_k = G.render_loss_and_grad(scene, params, target, xs, ys, 1, key)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(ct.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.time()
     with ct.plain_versions():
         loss_p, g_p = G.render_loss_and_grad(scene, params, target, xs, ys, 1,
                                              key)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
     diffs = {k: float((g_k[k] - g_p[k]).abs().max()) for k in g_k}
-    emit("train", check="gradient_parity", pixels=int(xs.numel()), spp=1,
-         loss_kernels=float(loss_k), loss_plain=float(loss_p),
-         max_abs_diff=diffs,
-         max_abs_grad={k: float(v.abs().max()) for k, v in g_k.items()})
+    res = dict(path=path, integrator=scene.static.integrator,
+               pixels=int(xs.numel()), spp=1, seconds=seconds,
+               plain_seconds=plain_s, max_memory_allocated=peak,
+               launches=launches, loss_kernels=float(loss_k),
+               loss_plain=float(loss_p), largest_leaf_diff=max(diffs.values()),
+               max_abs_diff=diffs,
+               max_abs_grad={k: float(v.abs().max()) for k, v in g_k.items()})
+    emit("train", check="gradient_parity", **res)
     for k in g_k:
         if not torch.allclose(g_k[k], g_p[k], rtol=1e-4, atol=1e-6):
-            raise AssertionError(f"gradient {k}: kernels and plain versions "
-                                 f"differ by {diffs[k]}")
-    if not finite(g_k):
-        raise AssertionError("the crop's gradient is not finite")
+            raise AssertionError(f"{path}: gradient {k}: kernels and plain "
+                                 f"versions differ by {diffs[k]}")
+    if not (finite(g_k) and finite(g_p)):
+        raise AssertionError(f"{path}: the crop's gradient is not finite")
+    return res
+
+
+def path_grad_parity(scene, ibl_scene, key) -> dict:
+    """grad_parity on the 32x32 crop for every other traced path: each
+    integrator of PATHS on the bench, each of IBL_PATHS on the bench with
+    the image-based light, from each scene's own parameters towards a flat
+    0.25 target.  sp_closest launches on every path, sp_anyhit exactly
+    where the path has NEE → {path: launches}."""
+    from simplepath_tpu_torch.diff import grad as G
+    by_path = {}
+    cases = ([(name, with_integrator(scene, name), nee)
+              for name, nee in PATHS.items()]
+             + [(f"ibl_{name}", with_integrator(ibl_scene, name), nee)
+                for name, nee in IBL_PATHS.items()])
+    for path, pscene, nee in cases:
+        cx, cy = crop_batch(pscene, PATH_CROP)
+        ctarget = torch.full((cx.numel(), 3), 0.25, device=pscene.device)
+        res = grad_parity(pscene, G.get_params(pscene), ctarget, cx, cy, key,
+                          path)
+        check_launches(f"train_{path}", res["launches"], nee)
+        by_path[f"train_{path}"] = res["launches"]
+    return by_path
 
 
 def leaf_group_steps(scene, params, target, xs, ys, key) -> dict:
@@ -1603,12 +1696,14 @@ def fd_probe(scene, params, target, xs, ys, key, spp, grads) -> None:
                 eps))
 
 
-def phase_train(scene) -> dict:
+def phase_train(scene, ibl) -> dict:
     """Reverse-mode rendering on the bench scene: the train path is the 3
     make_train_step calls over the albedo (launch counts set to 0 just
     before them and read just after); then one step over every leaf and
     over each group of leaves, the 4-spp step, the step's cost, the
-    kernel/plain gradient parity and the finite differences."""
+    kernel/plain gradient parity and the finite differences; then the
+    gradient parity of every other traced path (path_grad_parity).
+    → {"train": launches of the steps, "train_<path>": each path's}."""
     from simplepath_tpu_torch.core.rng import prng_key
     from simplepath_tpu_torch.diff import grad as G
     from simplepath_tpu_torch.render import cuda_traverse as ct
@@ -1676,10 +1771,11 @@ def phase_train(scene) -> dict:
     fd_check(*crop, "mat_albedo", argmax_index(g4["mat_albedo"]), 1e-3)
     fd_check(*crop, "light_radiance", argmax_index(g4["light_radiance"]), 1e-2)
     fd_probe(*crop)
-    return by_path
+    return {"train": by_path, **path_grad_parity(scene, ibl[0], key)}
 
 
 GEOM_SHARDS = 4
+GEOM_SPP = 1
 
 
 def held_against(img, ref) -> dict:
@@ -1715,24 +1811,30 @@ def forest_builds(scene, mesh, cache_dir: str) -> tuple:
     return forest, cold, warm
 
 
-def phase_geom(scene, spp: int, ref) -> dict:
+def phase_geom(scene) -> dict:
     """The bench scene as a forest of GEOM_SHARDS on the card: the full
-    frame against the one-BVH frame ``ref`` (max abs diff < 1e-4), the
-    forest's kernels against their plain versions at 128x128, and the frame
-    through one BVH and through the forest in turns."""
+    frame at GEOM_SPP through one BVH and through the forest in turns
+    (A B B A, all warm), the forest's first frame against the first
+    one-BVH frame (max abs diff < 1e-4), and the forest's kernels against
+    their plain versions at 128x128."""
     from simplepath_tpu_torch.parallel.geom_shard import (
         make_geom_mesh, render_image_geom_sharded)
 
-    by_path = {}
     mesh = make_geom_mesh(GEOM_SHARDS)
     forest, cold, warm = forest_builds(scene, mesh,
                                        os.path.join(OUT_DIR, "forest_cache"))
-    res, img = render_frame("geom_bench", forest, spp,
-                            render_image_geom_sharded)
+    turns, first = [], {}
+    for path, sc, render in (("one_bvh", scene, None),
+                             ("forest", forest, render_image_geom_sharded),
+                             ("forest", forest, render_image_geom_sharded),
+                             ("one_bvh", scene, None)):
+        r, img = render_frame(path, sc, GEOM_SPP, render)
+        turns.append((path, r["render_s"]))
+        first.setdefault(path, (r, img))
+    res, img = first["forest"]
     check_launches("geom_bench", res["launches"], nee=True)
-    gate = held_against(img, ref)
-    by_path["geom_bench"] = res["launches"]
-    emit("geom", **res, shards=GEOM_SHARDS,
+    gate = held_against(img, first["one_bvh"][1])
+    emit("geom", **dict(res, path="geom_bench"), shards=GEOM_SHARDS,
          record_rows=list(forest.bvh.records.shape[:2]),
          forest_build_cold_s=cold, forest_build_warm_s=warm,
          against_one_bvh=gate)
@@ -1740,22 +1842,12 @@ def phase_geom(scene, spp: int, ref) -> dict:
         raise AssertionError(f"the forest's bench frame departs from the "
                              f"one-BVH frame: {gate}")
     parity_case("geom_bench", forest)
-
-    # the same frame through one BVH and through the forest in turns
-    # (A B B A), both warm: the forest's frame above and the render phase's
-    turns = []
-    for path, sc, render in (("one_bvh", scene, None),
-                             ("forest", forest, render_image_geom_sharded),
-                             ("forest", forest, render_image_geom_sharded),
-                             ("one_bvh", scene, None)):
-        r, _ = render_frame(path, sc, spp, render)
-        turns.append((path, r["render_s"]))
     one = [s for p, s in turns if p == "one_bvh"]
     four = [s for p, s in turns if p == "forest"]
-    emit("geom", path="geom_bench_turns", spp=spp, order="A B B A",
+    emit("geom", path="geom_bench_turns", spp=GEOM_SPP, order="A B B A",
          seconds=turns, one_bvh_s=one, forest_s=four,
          forest_over_one_bvh=sum(four) / sum(one))
-    return by_path
+    return {"geom_bench": res["launches"]}
 
 
 LUCY_SCENE = os.path.join(HERE, "scenes", "lucy_bench.sp")
@@ -2122,23 +2214,61 @@ def phase_ranks(scene) -> dict:
 # each as the environment its processes are started with (the knobs are read
 # at import), and the order of its processes: the default topology's frame
 # first and last, each other topology's kernels, parity and frame, then its
-# frame alone again, so that every topology's frame is timed in turns.
+# frame alone again, so that every topology's frame is timed in turns; then
+# the leaf layouts that only need checking (the ``check`` job: kernels,
+# parity and one frame): the leaf meta read as three floats (9K not a
+# multiple of 4), one slot a lane with idle lanes (K=5), three-row leaves and
+# four slots a lane (K=29 at W=8, where registers are scarcest) or two (W=16).
 DEFAULT_TOPOLOGY = "w8_k12"
 TOPOLOGIES = {"w8_k12": {"SIMPLEPATH_BVH_WIDTH": "8", "SIMPLEPATH_BVH_LEAF": "12"},
               "w16_k12": {"SIMPLEPATH_BVH_WIDTH": "16", "SIMPLEPATH_BVH_LEAF": "12"},
-              "w8_k24": {"SIMPLEPATH_BVH_WIDTH": "8", "SIMPLEPATH_BVH_LEAF": "24"}}
+              "w8_k24": {"SIMPLEPATH_BVH_WIDTH": "8", "SIMPLEPATH_BVH_LEAF": "24"},
+              "w8_k5": {"SIMPLEPATH_BVH_WIDTH": "8", "SIMPLEPATH_BVH_LEAF": "5"},
+              "w8_k29": {"SIMPLEPATH_BVH_WIDTH": "8", "SIMPLEPATH_BVH_LEAF": "29"},
+              "w16_k29": {"SIMPLEPATH_BVH_WIDTH": "16", "SIMPLEPATH_BVH_LEAF": "29"}}
 TOPOLOGY_TURNS = (("w8_k12", "frame"), ("w16_k12", "full"), ("w8_k24", "full"),
-                  ("w8_k24", "frame"), ("w16_k12", "frame"), ("w8_k12", "frame"))
+                  ("w8_k24", "frame"), ("w16_k12", "frame"), ("w8_k12", "frame"),
+                  ("w8_k5", "check"), ("w8_k29", "check"), ("w16_k29", "check"))
 TOPOLOGY_TIMEOUT_S = 400
+
+
+def ptxas_summary(lines: list) -> dict:
+    """What ``nvcc -Xptxas -v`` says of each kernel of the library, keyed
+    by the kernel and its template arguments (``traverse_kernel<0,0>`` is
+    sp_closest, ``<1,0>`` sp_anyhit, ``<0,1>`` sp_closest_count; the
+    probes' ``row_chase_kernel<C>`` and ``visit_body_kernel<mode,check>``):
+    registers, spill stores and loads, stack frame and shared memory, in
+    bytes."""
+    out, name = {}, None
+    for line in lines:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)I(\w*?)EEv", m.group(1))
+            name = f"{k.group(1)}<{','.join(re.findall(r'L[bi](\d+)E', k.group(2)))}>"
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack_frame=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and name:
+            out[name].update(registers=int(m.group(1)), smem=int(m.group(2)))
+    return out
 
 
 def run_topology(job: str, out: str) -> None:
     """One process of the topology phase (``chip_smoke.py --topology-job
-    JOB``), at the topology its environment sets: with ``full``, the
-    bench's build, both kernels against their plain versions on the five
-    ray sets and the 128x128 render parity; with either job, the 1024x1024
-    flagship frame at 1 spp under prng_key(0), after a warm-up chunk.
-    Writes result.json and frame.npy into ``out``."""
+    JOB``), at the topology its environment sets: with ``full`` or
+    ``check``, the library built anew with ptxas's verbose lines, both
+    kernels against their plain versions on the bench's five ray sets and
+    the 128x128 render parity (``full`` also times the visit body); with
+    every job, the 1024x1024 flagship frame at 1 spp under prng_key(0),
+    after a warm-up chunk.  The library and the scene are ready before the
+    process waits for its turn on the card (``out/go``).  Writes
+    result.json and frame.npy into ``out``."""
     import simplepath_tpu_torch as sp
     from simplepath_tpu_torch.parallel.mesh import warmup_render
     from simplepath_tpu_torch.render import cuda_traverse as ct
@@ -2147,8 +2277,9 @@ def run_topology(job: str, out: str) -> None:
     res = {"job": job, "width": bvh.WIDTH, "leaf_size": bvh.LEAF_SIZE,
            "leaf_rows": bvh.LEAF_ROWS, "kernel_stack": ct.KERNEL_STACK,
            "lanes_per_ray": ct.LANES_PER_RAY}
+    checked = job in ("full", "check")
     t0 = time.time()
-    if job == "full":       # built anew, for what ptxas says of it
+    if checked:             # built anew, for what ptxas says of it
         lib = ct.library_path()
         res["ptxas"] = ct._compile_source(ct.KERNEL_SOURCE, lib,
                                           verbose=True).splitlines()
@@ -2161,12 +2292,21 @@ def run_topology(job: str, out: str) -> None:
     torch.cuda.synchronize()
     res.update(load_s=time.time() - t0,
                record_rows=int(scene.bvh.records.shape[0]))
-    if job == "full":
+    # ready for the card: wait for this process's turn (phase_topology)
+    open(os.path.join(out, "ready"), "w").close()
+    t0 = time.time()
+    while not os.path.exists(os.path.join(out, "go")):
+        if time.time() - t0 > TOPOLOGY_TIMEOUT_S:
+            raise TimeoutError("the topology phase never gave this process its turn")
+        time.sleep(0.05)
+    res["waited_s"] = time.time() - t0
+    if checked:
         res["kernels"] = list(phase_kernels(scene, kernel_ray_sets(scene)[0]).values())
         res["parity"] = parity_case("iterative_rrnee", scene)
         if res["parity"]["max_abs_diff"] != 0.0:
             raise AssertionError("the 128x128 kernel render is not bit-equal "
                                  f"to the plain-version render: {res['parity']}")
+    if job == "full":
         res["visit_body"] = probe_visit_body(scene.bvh.records)
     res["warmup_s"] = warmup_render(scene, 1)
     summary, img = render_frame("topology_frame", scene, 1)
@@ -2177,47 +2317,71 @@ def run_topology(job: str, out: str) -> None:
         json.dump(res, f)
 
 
-def spawn_topology(name: str, job: str, out: str) -> dict:
-    """Run one topology-phase process in ``out`` and return its
-    result.json; raise with its output if it fails or runs past
-    TOPOLOGY_TIMEOUT_S."""
+def start_topology(name: str, job: str, out: str) -> tuple:
+    """Start one topology-phase process in ``out`` → (process, its log,
+    its start time)."""
     os.makedirs(out)
-    env = dict(os.environ, **TOPOLOGIES[name])
-    with open(os.path.join(out, "process.log"), "w+") as log:
-        proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--topology-job", job,
-             "--topology-out", out], stdout=log, stderr=subprocess.STDOUT,
-            env=env)
-        try:
-            proc.wait(timeout=TOPOLOGY_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        if proc.returncode != 0:
+    log = open(os.path.join(out, "process.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--topology-job", job,
+         "--topology-out", out], stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, **TOPOLOGIES[name]))
+    return proc, log, time.time()
+
+
+def await_topology(run: tuple, out: str, ready: bool) -> None:
+    """Wait for a topology-phase process until it is ready for its turn on
+    the card (``ready``: it wrote ``out/ready``) or until it exits; raise
+    with its output if it exits non-zero or before it is ready, or runs
+    past TOPOLOGY_TIMEOUT_S (it is killed then)."""
+    proc, log, started = run
+    while not (ready and os.path.exists(os.path.join(out, "ready"))):
+        code = proc.poll()
+        if code == 0 and not ready:
+            return
+        if code is not None or time.time() - started > TOPOLOGY_TIMEOUT_S:
+            if code is None:
+                proc.kill()
+                proc.wait()
             log.seek(0)
-            raise AssertionError(f"the {name} {job} process failed (exit "
+            raise AssertionError(f"the topology process in {out} failed (exit "
                                  f"{proc.returncode}):\n{log.read()[-4000:]}")
-    with open(os.path.join(out, "result.json")) as f:
-        return json.load(f)
+        time.sleep(0.05)
 
 
 def phase_topology() -> tuple:
     """The kernels at each non-default topology, in fresh processes in the
-    order TOPOLOGY_TURNS: everything the full job checks, and its frame
-    within max abs diff 1e-4 of the default topology's
+    order TOPOLOGY_TURNS: everything the full or check job checks, and its
+    frame within max abs diff 1e-4 of the default topology's
     (tests/test_geom_shard.py's gate: only equal-t ties can differ).
     Returns ({topology: kernels results}, {topology: frame launches},
-    {topology: visit-body readings})."""
+    {topology: visit-body readings, for the full jobs})."""
     import shutil
 
     out = os.path.join(OUT_DIR, "topology")
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
-    runs = []
-    for i, (name, job) in enumerate(TOPOLOGY_TURNS):
-        t0 = time.time()
-        res = spawn_topology(name, job, os.path.join(out, f"{i}_{name}_{job}"))
-        runs.append((name, job, res, time.time() - t0))
+    # one process at a time has its turn on the card; the next one starts
+    # up (imports, build, scene load) during that turn
+    dirs = [os.path.join(out, f"{i}_{name}_{job}")
+            for i, (name, job) in enumerate(TOPOLOGY_TURNS)]
+    runs, procs = [], [start_topology(*TOPOLOGY_TURNS[0], dirs[0])]
+    try:
+        for i, (name, job) in enumerate(TOPOLOGY_TURNS):
+            await_topology(procs[i], dirs[i], ready=True)
+            t0 = time.time()
+            open(os.path.join(dirs[i], "go"), "w").close()
+            if i + 1 < len(TOPOLOGY_TURNS):
+                procs.append(start_topology(*TOPOLOGY_TURNS[i + 1], dirs[i + 1]))
+            await_topology(procs[i], dirs[i], ready=False)
+            with open(os.path.join(dirs[i], "result.json")) as f:
+                runs.append((name, job, json.load(f), time.time() - t0))
+    finally:
+        for proc, log, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
     frames = {}                 # each topology's first frame
     for i, (name, job, _, _) in enumerate(runs):
         if name not in frames:
@@ -2226,12 +2390,12 @@ def phase_topology() -> tuple:
     ref = frames[DEFAULT_TOPOLOGY]
     results, launches, bodies = {}, {}, {}
     for name, job, res, _ in runs:
-        if job != "full":
+        if job == "frame":
             continue
         for case in res["kernels"]:
             emit("topology", topology=name, check="kernel", **case)
         emit("topology", topology=name, check="parity", **res["parity"])
-        for case in res["visit_body"]:
+        for case in res.get("visit_body", []):
             emit("topology", topology=name, check="visit_body", **case)
         gate = held_against(frames[name], ref)
         frame_s = {n: [r["frame"]["render_s"] for n2, _, r, _ in runs if n2 == n]
@@ -2241,7 +2405,7 @@ def phase_topology() -> tuple:
              kernel_stack=res["kernel_stack"],
              lanes_per_ray=res["lanes_per_ray"], record_rows=res["record_rows"],
              library=res["library"], build_s=res["build_s"],
-             ptxas=res["ptxas"],
+             ptxas=ptxas_summary(res["ptxas"]),
              load_s=res["load_s"], launches=res["frame"]["launches"],
              image_mean=res["frame"]["image_mean"],
              max_memory_allocated=res["frame"]["max_memory_allocated"],
@@ -2253,9 +2417,10 @@ def phase_topology() -> tuple:
                                  f"topology's: {gate}")
         results[name] = {(c["kernel"], c["case"]): c for c in res["kernels"]}
         launches[name] = res["frame"]["launches"]
-        bodies[name] = res["visit_body"]
+        if "visit_body" in res:
+            bodies[name] = res["visit_body"]
     emit("topology", check="turns", order=[f"{n} {j}" for n, j, _, _ in runs],
-         process_s=[s for *_, s in runs],
+         turn_s=[s for *_, s in runs],
          frame_s=[r["frame"]["render_s"] for _, _, r, _ in runs])
     return results, launches, bodies
 
@@ -2348,8 +2513,8 @@ def kernels_line(results: dict, launches: dict, by_path: dict,
     launches from lucy's 1-spp frame) and at every other topology the
     topology phase drove (``closest_w16_k12``, ..., launches from that
     topology's frame); the three measuring kernels (``closest_count``,
-    ``row_chase``, ``visit_body``, and the visit body at the other
-    topologies, ``visit_body_w16_k12``, ...)."""
+    ``row_chase``, ``visit_body``, and the visit body at the topologies
+    whose job timed it, ``visit_body_w16_k12``, ...)."""
     from simplepath_tpu_torch.scene.bvh import LEAF_SIZE, WIDTH
     entries = []
     if results:
@@ -2373,8 +2538,9 @@ def kernels_line(results: dict, launches: dict, by_path: dict,
                                  int(knobs["SIMPLEPATH_BVH_WIDTH"]),
                                  int(knobs["SIMPLEPATH_BVH_LEAF"]))
                     for k in ("closest", "anyhit")]
-        entries.append(visit_body_entry(f"visit_body_{topo}", topo_bodies[topo],
-                                        topo_launches[topo]))
+        if topo in topo_bodies:
+            entries.append(visit_body_entry(f"visit_body_{topo}",
+                                            topo_bodies[topo], topo_launches[topo]))
     return {"kernels": entries, "launches_by_path": by_path}
 
 
@@ -2388,7 +2554,7 @@ def main() -> int:
     ap.add_argument("--world", type=int, default=RANKS,
                     help=argparse.SUPPRESS)
     ap.add_argument("--rank-out", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--topology-job", choices=("full", "frame"), default=None,
+    ap.add_argument("--topology-job", choices=("full", "check", "frame"), default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--topology-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -2448,17 +2614,17 @@ def run(args, phases, progress: dict) -> int:
 
     results, by_path, probes = {}, {}, {}
     ibl = None
-    if "paths" in phases or "parity" in phases:
+    if "paths" in phases or "parity" in phases or "train" in phases:
         ibl = timed("ibl_scene", ibl_bench_scene)
     if "kernels" in phases or "probes" in phases:
         sets = timed("ray_sets", kernel_ray_sets, scene)[0]
     if "kernels" in phases:
         results = timed("kernels", phase_kernels, scene, sets)
+        by_path["one_ray_forms"] = timed("one_ray_forms", one_ray_forms, scene)
     if "probes" in phases:
         probes = timed("probes", phase_probes, scene, sets)
-    render_img = None
     if "render" in phases:
-        by_path["iterative_rrnee"], render_img = timed(
+        by_path["iterative_rrnee"] = timed(
             "render", phase_render, scene, args.spp, load_s, bvh.LAST_BUILDER,
             geometry_cache)
     if "paths" in phases:
@@ -2470,14 +2636,9 @@ def run(args, phases, progress: dict) -> int:
     if "golden" in phases:
         by_path.update(timed("golden", phase_golden))
     if "train" in phases:
-        by_path["train"] = timed("train", phase_train, scene)
+        by_path.update(timed("train", phase_train, scene, ibl))
     if "geom" in phases:
-        if render_img is None:
-            from simplepath_tpu_torch.core.rng import prng_key
-            from simplepath_tpu_torch.parallel.mesh import render_image_sharded
-            render_img = render_image_sharded(scene, args.spp, prng_key(0))
-        by_path.update(timed("geom", phase_geom, scene, args.spp, render_img))
-        del render_img
+        by_path.update(timed("geom", phase_geom, scene))
     lucy = None
     if "lucy" in phases:
         lucy = timed("lucy", phase_lucy, scene, results)

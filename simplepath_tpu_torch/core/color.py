@@ -1,7 +1,6 @@
-"""Color utilities: luminance, HSV→RGB.
+"""Color utilities: luminance, sRGB encode, HSV→RGB.
 
-Counterpart of ``simplepath_tpu/core/color.py`` (the sRGB transfer belongs
-to a later slice: image output beyond PFM).  Colors are ``[..., 3]``.
+Counterpart of ``simplepath_tpu/core/color.py``.  Colors are ``[..., 3]``.
 """
 
 from __future__ import annotations
@@ -9,7 +8,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-__all__ = ["relative_luminance", "hsv_to_rgb"]
+__all__ = ["relative_luminance", "rgb_to_srgb", "hsv_to_rgb"]
 
 _LUMA_WEIGHTS = (0.2126, 0.7152, 0.0722)  # Rec.709
 
@@ -18,6 +17,14 @@ def relative_luminance(c: Tensor) -> Tensor:
     return (_LUMA_WEIGHTS[0] * c[..., 0]
             + _LUMA_WEIGHTS[1] * c[..., 1]
             + _LUMA_WEIGHTS[2] * c[..., 2])
+
+
+def rgb_to_srgb(c: Tensor) -> Tensor:
+    """Linear → sRGB transfer: linear below the 0.0031308 knee, the 1/2.4
+    power above it (on a floored value, so the unused branch stays finite)."""
+    return torch.where(c <= 0.0031308,
+                       12.92 * c,
+                       1.055 * torch.pow(torch.clamp_min(c, 1e-12), 1.0 / 2.4) - 0.055)
 
 
 def hsv_to_rgb(h: Tensor, s: Tensor, v: Tensor) -> Tensor:

@@ -16,11 +16,13 @@ from .vec import safe_sqrt, vec3
 
 PI = math.pi
 TWO_PI = 2.0 * math.pi
+INV_PI = 1.0 / math.pi
 
 __all__ = ["sample_to_uniform_sphere", "uniform_sphere_pdf",
            "sample_to_uniform_hemisphere", "uniform_hemisphere_pdf",
            "sample_to_concentric_disk", "sample_to_cosine_hemisphere",
-           "spherical_theta", "spherical_phi"]
+           "cosine_hemisphere_pdf", "sample_to_uniform_cone", "uniform_cone_pdf",
+           "spherical_direction", "spherical_theta", "spherical_phi"]
 
 
 def sample_to_uniform_sphere(u: Tensor) -> Tensor:
@@ -70,6 +72,28 @@ def sample_to_cosine_hemisphere(u: Tensor) -> Tensor:
     d = sample_to_concentric_disk(u)
     y = safe_sqrt(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2)
     return vec3(d[..., 0], y, d[..., 1])
+
+
+def cosine_hemisphere_pdf(cos_theta: Tensor) -> Tensor:
+    return cos_theta * INV_PI
+
+
+def sample_to_uniform_cone(u: Tensor, cos_theta_max) -> Tensor:
+    """Uniform in a cone of half-angle acos(cos_theta_max) around +y."""
+    cos_theta = (1.0 - u[..., 0]) + u[..., 0] * cos_theta_max
+    sin_theta = safe_sqrt(1.0 - cos_theta * cos_theta)
+    phi = u[..., 1] * TWO_PI
+    return vec3(torch.cos(phi) * sin_theta, cos_theta, torch.sin(phi) * sin_theta)
+
+
+def uniform_cone_pdf(cos_theta_max):
+    return 1.0 / (TWO_PI * (1.0 - cos_theta_max))
+
+
+def spherical_direction(sin_theta: Tensor, cos_theta: Tensor, phi: Tensor) -> Tensor:
+    """y-up spherical direction: the polar axis is +y, phi runs from +x
+    toward +z."""
+    return vec3(sin_theta * torch.cos(phi), cos_theta, sin_theta * torch.sin(phi))
 
 
 def spherical_theta(v: Tensor) -> Tensor:

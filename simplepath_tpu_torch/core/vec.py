@@ -10,8 +10,8 @@ import torch
 from torch import Tensor
 
 __all__ = ["vec3", "dot", "cross", "length", "sqr_length", "normalize",
-           "matvec3", "vecmat3", "safe_normalize", "safe_sqrt", "reflect_local",
-           "reflect"]
+           "matvec3", "vecmat3", "safe_normalize", "madd", "lerp", "safe_divide",
+           "safe_sqrt", "is_normalized", "reflect_local", "reflect"]
 
 
 def vec3(x: Tensor, y: Tensor, z: Tensor) -> Tensor:
@@ -63,10 +63,34 @@ def safe_normalize(a: Tensor, eps: float = 1e-20) -> Tensor:
     return a * torch.rsqrt(len2)[..., None]
 
 
+def madd(a, b, c):
+    """Multiply-add ``a * b + c``, the reference's named helper (two float
+    ops, as the JAX package computes it; not a fused multiply-add)."""
+    return a * b + c
+
+
+def lerp(x, a, b):
+    """(1-x)*a + x*b."""
+    return (1.0 - x) * a + x * b
+
+
+def safe_divide(a, b):
+    """a/b with 0 where b == 0.  The divisor is replaced by 1 there before
+    dividing, so neither branch (nor its backward) produces inf or NaN."""
+    b = torch.as_tensor(b)
+    zero = b == 0.0
+    return torch.where(zero, 0.0, a / torch.where(zero, 1.0, b))
+
+
 def safe_sqrt(x: Tensor, floor: float = 1e-20) -> Tensor:
     """sqrt clamped away from 0 (keeps the reference's values and a finite
     backward)."""
     return torch.sqrt(torch.clamp_min(x, floor))
+
+
+def is_normalized(a: Tensor, eps: float = 1e-3) -> Tensor:
+    """Whether the squared length is within ``eps`` of 1."""
+    return torch.abs(sqr_length(a) - 1.0) < eps
 
 
 def reflect_local(wo: Tensor) -> Tensor:

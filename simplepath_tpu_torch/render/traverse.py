@@ -29,7 +29,8 @@ from .intersect import (INF_DISTANCE, intersect_planes, intersect_spheres,
 from .lights import (env_light_radiance, sphere_light_intersect,
                      sphere_light_intersect_p)
 
-__all__ = ["Hit", "scene_intersect_batch", "scene_intersect_p_batch",
+__all__ = ["Hit", "scene_intersect", "scene_intersect_batch",
+           "scene_intersect_p", "scene_intersect_p_batch",
            "scene_intersect_lights", "hit_shading", "KIND_TRIANGLE",
            "KIND_SPHERE", "KIND_PLANE"]
 
@@ -107,6 +108,34 @@ def _brute_planes(scene: Scene, ro, rd, t_min, t_max) -> Hit:
 
 
 # ---------------------------------------------------------- public API
+
+def _one_ray(ro: Tensor, rd: Tensor, t_min, t_max):
+    """A single ray (``ro``/``rd`` [3], scalar interval) as a batch of one."""
+    t_min = torch.as_tensor(t_min, dtype=torch.float32, device=ro.device)
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=ro.device)
+    return ro[None], rd[None], t_min.reshape(1), t_max.reshape(1)
+
+
+def scene_intersect(scene: Scene, ro: Tensor, rd: Tensor, t_min, t_max) -> Hit:
+    """Closest geometry hit of ONE ray (``ro``/``rd`` [3], scalar
+    ``t_min``/``t_max``) → a Hit of 0-d fields.
+
+    :func:`scene_intersect_batch` over a batch of one, so a CUDA tensor
+    launches ``sp_closest`` for N = 1 and a CPU tensor takes its plain
+    version.  The search is detached and the winning primitive is
+    re-intersected differentiably, so dt/dθ flows through the ray and the
+    scene's tables.
+    """
+    hit = scene_intersect_batch(scene, *_one_ray(ro, rd, t_min, t_max))
+    return Hit(*(f[0] for f in hit))
+
+
+def scene_intersect_p(scene: Scene, ro: Tensor, rd: Tensor, t_min, t_max) -> Tensor:
+    """Occlusion (geometry OR lights) of ONE ray → a 0-d bool:
+    :func:`scene_intersect_p_batch` over a batch of one (``sp_anyhit`` for
+    N = 1 on a CUDA tensor).  Fully detached."""
+    return scene_intersect_p_batch(scene, *_one_ray(ro, rd, t_min, t_max))[0]
+
 
 def scene_intersect_batch(scene: Scene, ro: Tensor, rd: Tensor, t_min: Tensor,
                           t_max: Tensor) -> Hit:

@@ -52,7 +52,7 @@ import os
 import numpy as np
 
 __all__ = ["build_bvh_wide", "build_nodes", "tree_depth", "table_stats",
-           "pack_records", "make_packed_records",
+           "pack_records", "make_bvh_arrays", "make_packed_records",
            "LEAF_SIZE", "WIDTH", "RECORD_WIDTH", "LEAF_ROWS"]
 
 # Topology knobs (A/B-able via env, read once at import).  The CUDA kernels
@@ -324,3 +324,20 @@ def make_packed_records(tri_lo: np.ndarray, tri_hi: np.ndarray,
     minutes through the Python builder), numpy otherwise."""
     nodes, order = build_nodes(tri_lo, tri_hi)
     return pack_records(nodes, v0[order], v1[order], v2[order]), order
+
+
+def make_bvh_arrays(tri_lo: np.ndarray, tri_hi: np.ndarray,
+                    v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
+                    device=None):
+    """make_packed_records + the upload → ``(BVHArrays, prim_order)``.
+
+    ``device=None`` means CUDA and raises without one (pass ``device="cpu"``
+    for the plain path)."""
+    import torch
+
+    from ..device import resolve_device
+    from .types import BVHArrays
+
+    dev = resolve_device(device)
+    records, order = make_packed_records(tri_lo, tri_hi, v0, v1, v2)
+    return BVHArrays(records=torch.from_numpy(records).to(dev)), order

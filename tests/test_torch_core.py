@@ -29,6 +29,20 @@ U2[:4] = [[0, 0], [0.5, 0.5], [0.999999, 0.25], [0.25, 0.999999]]
 S = _RS.rand(N).astype(np.float32)
 M33 = _RS.randn(N, 3, 3).astype(np.float32)
 COS = np.concatenate([np.linspace(-1, 1, N - 2), [0.0, 1e-9]]).astype(np.float32)
+# divisors with exact zeros (safe_divide gives 0 there)
+DIV = np.where(S < 0.2, 0.0, B3[:, 0]).astype(np.float32)
+# squared lengths 1 + d, d on both sides of is_normalized's eps (1e-3) and
+# well clear of it
+NEAR_UNIT = (UNIT * np.sqrt(1.0 + np.resize(
+    np.float32([-2e-3, -9e-4, -5e-4, 0.0, 5e-4, 9e-4, 2e-3, 0.5]), N))[:, None]
+    ).astype(np.float32)
+# linear colours through 0, the sRGB knee at 0.0031308 and above 1
+LINEAR = np.concatenate([
+    [0.0, 0.0031308, np.nextafter(np.float32(0.0031308), np.float32(1)),
+     1e-5, 1.0, 1.5], np.linspace(0.0, 4.0, 3 * N - 6)]).astype(
+    np.float32).reshape(N, 3)
+THETA = (U2[:, 0] * np.pi).astype(np.float32)
+PHI = (U2[:, 1] * 2.0 * np.pi).astype(np.float32)
 
 
 def t(x):
@@ -61,6 +75,10 @@ CASES = [
     ("vec.safe_sqrt", Jv.safe_sqrt, Tv.safe_sqrt, (A3[:, 0],), 1e-6),
     ("vec.reflect", Jv.reflect, Tv.reflect, (A3, UNIT), 1e-6),
     ("vec.reflect_local", Jv.reflect_local, Tv.reflect_local, (A3,), 1e-6),
+    ("vec.madd", Jv.madd, Tv.madd, (A3, B3, UNIT), 1e-6),
+    ("vec.lerp", Jv.lerp, Tv.lerp, (S[:, None], A3, B3), 1e-6),
+    ("vec.safe_divide", Jv.safe_divide, Tv.safe_divide, (A3[:, 0], DIV), 1e-6),
+    ("vec.is_normalized", Jv.is_normalized, Tv.is_normalized, (NEAR_UNIT,), 0),
     ("onb.onb_create", Jo.onb_create, To.onb_create, (UNIT,), 1e-6),
     ("onb.onb_from_v", Jo.onb_from_v, To.onb_from_v, (A3,), 1e-6),
     ("smath.balance_heuristic", Jm.balance_heuristic, Tm.balance_heuristic,
@@ -82,8 +100,17 @@ CASES = [
      Ts.sample_to_concentric_disk, (U2,), 1e-5),
     ("sampling.cosine_hemisphere", Js.sample_to_cosine_hemisphere,
      Ts.sample_to_cosine_hemisphere, (U2,), 1e-5),
+    ("sampling.cosine_hemisphere_pdf", Js.cosine_hemisphere_pdf,
+     Ts.cosine_hemisphere_pdf, (COS,), 1e-5),
+    ("sampling.uniform_cone", Js.sample_to_uniform_cone,
+     Ts.sample_to_uniform_cone, (U2, np.float32(0.8)), 1e-5),
+    ("sampling.uniform_cone_pdf", Js.uniform_cone_pdf, Ts.uniform_cone_pdf,
+     (COS[:-3],), 1e-5),
+    ("sampling.spherical_direction", Js.spherical_direction,
+     Ts.spherical_direction, (np.sin(THETA), np.cos(THETA), PHI), 1e-5),
     ("color.relative_luminance", Jc.relative_luminance, Tc.relative_luminance,
      (np.abs(A3),), 1e-6),
+    ("color.rgb_to_srgb", Jc.rgb_to_srgb, Tc.rgb_to_srgb, (LINEAR,), 1e-6),
 ]
 
 
@@ -95,6 +122,18 @@ def test_core_function_matches_jax(name, jfn, tfn, args, rtol):
     atol = 1e-6 if name.startswith(("sampling", "smath.cos_phi", "smath.sin_phi",
                                     "onb")) else 1e-7
     check(jfn(*map(j, args)), tfn(*map(t, args)), rtol, atol)
+
+
+def test_safe_divide_backward_matches_jax():
+    """Where b == 0 both the value and the gradients are 0: the divisor is
+    replaced before dividing, so no inf or NaN reaches either backward."""
+    a, b = A3[:, 0], DIV
+    ja, jb = jax.grad(lambda x, y: Jv.safe_divide(x, y).sum(), argnums=(0, 1))(j(a), j(b))
+    ta, tb = t(a).requires_grad_(True), t(b).requires_grad_(True)
+    Tv.safe_divide(ta, tb).sum().backward()
+    assert (DIV == 0).any()
+    assert torch.isfinite(ta.grad).all() and torch.isfinite(tb.grad).all()
+    check((ja, jb), (ta.grad, tb.grad), 1e-6)
 
 
 def test_onb_round_trip_and_frames():

@@ -24,6 +24,8 @@ TRAVERSE = os.path.join(ROOT, "tests", "test_torch_traverse.py")
 KNOBS = ("SIMPLEPATH_BVH_WIDTH", "SIMPLEPATH_BVH_LEAF")
 W16 = {"SIMPLEPATH_BVH_WIDTH": "16"}       # wide nodes, the 63-pair network
 K24 = {"SIMPLEPATH_BVH_LEAF": "24"}        # two-row leaves
+K29 = {"SIMPLEPATH_BVH_LEAF": "29"}        # three-row leaves, three-float meta
+W16_K29 = {**W16, **K29}                   # both at once
 # part -> (-k expression, the number of tests it selects)
 PARTS = {"bvh": ("bvh_closest or bvh_any or stack_limit", 9),
          "packet": ("packet", 2),
