@@ -62,13 +62,13 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            and column) at 1 spp toward the port's own render at the true
            parameters, from a flat 0.5 albedo; seconds, launches and peak
            memory a step, one step at 4 spp; one step over every leaf and
-           over each group of leaves alone, and finite differences on the
-           camera and roughness leaves (recorded); a step's forward,
+           over each group of leaves alone; a step's forward,
            checkpointed and plain-autograd cost, and what a sample-level
            checkpoint would save; on a 64x64 crop the gradient through the
            kernels equals the one through their plain versions (rtol 1e-4,
            atol 1e-6), and matches central differences (4 spp) on the
-           largest albedo and light-radiance gradients; then the gradient
+           largest albedo and light-radiance gradients (and, recorded, on
+           the largest camera and roughness ones); then the gradient
            parity on the crop's middle 32x32 (both gradients finite) for
            each other traced integrator on the bench and both
            image-based-light paths, from each scene's own parameters toward
@@ -78,8 +78,8 @@ its plain PyTorch version on the card.  Phases, JSON lines:
   geom     the bench scene as a BVH forest of 4 shards on the card
            (parallel/geom_shard.py: both kernels once a shard and query,
            then the combine): forest build cold and warm through the cache;
-           the flagship full frame at 1 spp through one BVH and through the
-           forest, timed in turns (A B B A), the forest's frame against the
+           the flagship full frame at 1 spp through one BVH, then through
+           the forest (A B), the forest's frame against the
            one-BVH frame (max abs diff < 1e-4), its launches and peak memory;
            the forest's kernels vs plain versions at 128x128
   lucy     the lucy-class stress scene at its full size: scenes/lucy_bench.sp
@@ -96,18 +96,28 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            incoherent rays (counts equal to the plain version's); the full
            frame at 1 spp (42 chunks, the last padded); a 128x128 render
            through the kernels bit-equal to the plain-version render; the
-           full frame through a forest of 4, built cold and warm, held to the
+           full frame through a forest of 4, built once without the cache
+           (the geom phase holds its cache path), held to the
            one-BVH frame at the lucy gate (< 1 % of pixels off by > 1e-3,
            means within 1 %); each step's seconds
   ranks    two processes on the one card, joined over gloo (NCCL takes one
            GPU a rank; gloo stages the CUDA tensors of a collective through
            the host): the bench frame at 1 spp by render_image_multihost,
            each rank's frame equal to the one-process frame (timed after the
-           same warm-up, in this process before and after the ranks, and in
+           same warm-up, in this process after the ranks, and in
            a fresh process as a world of one), launches per rank; two
            train_step_multihost calls on the train phase's 65,536 pixels
            (the albedo), the first's loss and albedo against the
-           one-process step (rtol 1e-5 / atol 1e-5)
+           one-process step (rtol 1e-5 / atol 1e-5); then the multi-GPU
+           path's entry points with their ranks sharing the card over gloo:
+           entry.dryrun_multichip(4) (a train step, the 2 x 2 rays x
+           geometry render and its gradient, each against one process), and
+           the CLI as 2 ranks under torchrun (--dist-backend gloo): the cli
+           phase's scene in passes with a checkpoint, the same render cut
+           after its first pass and resumed by the 2 ranks, and
+           tests/scenes/g_blob.sp as a forest of 2 (g_ibl_rrnee.sp has no
+           triangle), rank 0's PFM equal to the one-process CLI's bit for
+           bit and written once
   topology the kernels at the BVH topologies other than the default
            (SIMPLEPATH_BVH_WIDTH=16; SIMPLEPATH_BVH_LEAF=24; and, checked
            without the visit body or the frame in turns, the leaf layouts
@@ -122,7 +132,7 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            1024x1024 flagship frame at 1 spp under the render phase's key
            within max abs diff 1e-4 of the default topology's frame, its
            seconds timed in turns with the default topology's (processes in
-           the order default, W=16, K=24, K=24, W=16, default) and its
+           the order default, W=16, K=24, default) and its
            launches of each kernel; the visit-body probe's four modes at W=16
            and K=24 (the probes phase's readings)
 
@@ -1153,11 +1163,7 @@ def phase_cli() -> None:
     progressive render with a checkpoint, then a render cut after its first
     4-spp pass (its checkpoint holds 4 of 8 samples) that the CLI resumes.
     The two PFMs must be equal byte for byte."""
-    import simplepath_tpu_torch as sp
     from simplepath_tpu_torch import cli
-    from simplepath_tpu_torch.core.rng import prng_key
-    from simplepath_tpu_torch.parallel import mesh
-    from simplepath_tpu_torch.render.film import render_image_progressive
     from simplepath_tpu_torch.utils import load_checkpoint
 
     out = os.path.join(OUT_DIR, "cli")
@@ -1173,27 +1179,7 @@ def phase_cli() -> None:
     if cli.main(args + ["--checkpoint", ck_whole, "--output", whole]) != 0:
         raise AssertionError("the CLI failed")
     cli_s = time.time() - t0
-
-    # the cut: the second pass dies, the checkpoint keeps the first
-    real = mesh.render_image_sharded
-    passes = []
-
-    def dying(*a, **kw):
-        passes.append(kw["spp_offset"])
-        if len(passes) == 2:
-            raise KeyboardInterrupt("cut after the first pass")
-        return real(*a, **kw)
-
-    mesh.render_image_sharded = dying
-    try:
-        render_image_progressive(sp.load_scene(IBL_TEST_SCENE), 8, prng_key(0),
-                                 chunk=4, checkpoint_path=ck_cut,
-                                 checkpoint_every=4)
-        raise AssertionError("the cut render was not cut")
-    except KeyboardInterrupt:
-        pass
-    finally:
-        mesh.render_image_sharded = real
+    cut_checkpoint(ck_cut)
     done_at_cut = load_checkpoint(ck_cut)[1]
     if done_at_cut != 4:
         raise AssertionError(f"the cut checkpoint holds {done_at_cut} samples")
@@ -1208,6 +1194,34 @@ def phase_cli() -> None:
          resumed_equals_whole=a == b, pfm_bytes=len(a))
     if a != b:
         raise AssertionError("the resumed film differs from the uninterrupted one")
+
+
+def cut_checkpoint(path: str) -> None:
+    """The cli phase's progressive render (its scene, 8 spp in passes of 4)
+    cut as its second pass starts: the checkpoint at ``path`` keeps the
+    first pass's 4 samples."""
+    import simplepath_tpu_torch as sp
+    from simplepath_tpu_torch.core.rng import prng_key
+    from simplepath_tpu_torch.parallel import mesh
+    from simplepath_tpu_torch.render.film import render_image_progressive
+
+    if os.path.exists(path):
+        os.remove(path)
+    real, passes = mesh.render_image_sharded, []
+
+    def dying(*a, **kw):
+        passes.append(kw["spp_offset"])
+        if len(passes) == 2:
+            raise KeyboardInterrupt("cut after the first pass")
+        return real(*a, **kw)
+
+    try:
+        render_image_progressive(sp.load_scene(IBL_TEST_SCENE), 8, prng_key(0),
+                                 chunk=4, checkpoint_path=path,
+                                 checkpoint_every=4, render_fn=dying)
+        raise AssertionError("the cut render was not cut")
+    except KeyboardInterrupt:
+        pass
 
 
 # The golden tiers of tests/test_golden_parity.py: PFMs rendered by the C++
@@ -1759,8 +1773,7 @@ def phase_train(scene, ibl) -> dict:
          peak_bytes_spp1=max(x["max_memory_allocated"] for x in steps),
          peak_bytes_spp4=peak4, step_s_spp4=s4, launches_spp4=launches4)
 
-    g0 = leaf_group_steps(scene, p0, target, xs, ys, key)
-    fd_probe(scene, p0, target, xs, ys, key, TRAIN_SPP, g0)
+    leaf_group_steps(scene, p0, target, xs, ys, key)
     step_cost(scene, params, target, xs, ys, key)
 
     cx, cy = crop_batch(scene)
@@ -1813,10 +1826,10 @@ def forest_builds(scene, mesh, cache_dir: str) -> tuple:
 
 def phase_geom(scene) -> dict:
     """The bench scene as a forest of GEOM_SHARDS on the card: the full
-    frame at GEOM_SPP through one BVH and through the forest in turns
-    (A B B A, all warm), the forest's first frame against the first
-    one-BVH frame (max abs diff < 1e-4), and the forest's kernels against
-    their plain versions at 128x128."""
+    frame at GEOM_SPP through one BVH, then through the forest (A B, both
+    warm), the forest's frame against the one-BVH frame (max abs diff <
+    1e-4), and the forest's kernels against their plain versions at
+    128x128."""
     from simplepath_tpu_torch.parallel.geom_shard import (
         make_geom_mesh, render_image_geom_sharded)
 
@@ -1825,9 +1838,7 @@ def phase_geom(scene) -> dict:
                                        os.path.join(OUT_DIR, "forest_cache"))
     turns, first = [], {}
     for path, sc, render in (("one_bvh", scene, None),
-                             ("forest", forest, render_image_geom_sharded),
-                             ("forest", forest, render_image_geom_sharded),
-                             ("one_bvh", scene, None)):
+                             ("forest", forest, render_image_geom_sharded)):
         r, img = render_frame(path, sc, GEOM_SPP, render)
         turns.append((path, r["render_s"]))
         first.setdefault(path, (r, img))
@@ -1844,7 +1855,7 @@ def phase_geom(scene) -> dict:
     parity_case("geom_bench", forest)
     one = [s for p, s in turns if p == "one_bvh"]
     four = [s for p, s in turns if p == "forest"]
-    emit("geom", path="geom_bench_turns", spp=GEOM_SPP, order="A B B A",
+    emit("geom", path="geom_bench_turns", spp=GEOM_SPP, order="A B",
          seconds=turns, one_bvh_s=one, forest_s=four,
          forest_over_one_bvh=sum(four) / sum(one))
     return {"geom_bench": res["launches"]}
@@ -1939,7 +1950,7 @@ def phase_lucy(bench, bench_results: dict) -> tuple:
     import shutil
 
     from simplepath_tpu_torch.parallel.geom_shard import (
-        make_geom_mesh, render_image_geom_sharded)
+        make_geom_mesh, render_image_geom_sharded, shard_scene_geometry)
     from simplepath_tpu_torch.parallel.mesh import CHUNK_RAYS_PER_DEVICE
     from simplepath_tpu_torch.scene import bvh
 
@@ -1992,9 +2003,12 @@ def phase_lucy(bench, bench_results: dict) -> tuple:
                              f"to the plain-version render: {parity}")
     emit("lucy", step="parity", bit_equal=True, s=time.time() - t0)
 
-    mesh = make_geom_mesh(GEOM_SHARDS)
-    forest, cold, warm = forest_builds(scene, mesh,
-                                       os.path.join(out, "forest_cache"))
+    # built once, without the cache: the geom phase holds the forest's
+    # cache path on the bench
+    t0 = time.time()
+    forest = shard_scene_geometry(scene, make_geom_mesh(GEOM_SHARDS))
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
     del scene
     torch.cuda.empty_cache()
     shards = [bvh.table_stats(r) for r in forest.bvh.records.cpu().numpy()]
@@ -2004,7 +2018,7 @@ def phase_lucy(bench, bench_results: dict) -> tuple:
     by_path["lucy_forest"] = fframe["launches"]
     gate = held_against(fimg, img)
     emit("lucy", step="forest", **fframe, shards=GEOM_SHARDS,
-         forest_build_cold_s=cold, forest_build_warm_s=warm,
+         forest_build_s=build_s,
          padded_rows=int(forest.bvh.records.shape[1]),
          used_rows=[s["used_rows"] for s in shards],
          mean_leaf_occupancy=[s["mean_leaf_occupancy"] for s in shards],
@@ -2021,6 +2035,9 @@ def phase_lucy(bench, bench_results: dict) -> tuple:
 
 RANKS = 2
 RANK_TIMEOUT_S = 600
+# the multi-GPU entry points' ranks on this one card (over gloo)
+DRYRUN_RANKS = 4
+CLI_RANKS = 2
 
 
 def run_rank(rank: int, world: int, out: str) -> None:
@@ -2087,34 +2104,11 @@ def run_rank(rank: int, world: int, out: str) -> None:
 def spawn_ranks(out: str, world: int) -> None:
     """Start ``world`` ranks of this script and wait for them; a rank that
     fails, or runs past RANK_TIMEOUT_S, ends them all and raises with the
-    failing ranks' output."""
-    logs = [open(os.path.join(out, f"rank_{r}.log"), "w+")
-            for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
-         "--world", str(world), "--rank-out", out],
-        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
-    deadline = time.time() + RANK_TIMEOUT_S
-    try:
-        while any(p.poll() is None for p in procs):
-            if (any(p.returncode not in (None, 0) for p in procs)
-                    or time.time() > deadline):
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    tails = []
-    for r, (p, f) in enumerate(zip(procs, logs)):
-        f.seek(0)
-        if p.returncode != 0:
-            tails.append(f"--- rank {r} (exit {p.returncode}):\n"
-                         + f.read()[-3000:])
-        f.close()
-    if tails:
-        raise AssertionError("a rank failed:\n" + "\n".join(tails))
+    failing ranks' output (``parallel/launch.run_processes``)."""
+    from simplepath_tpu_torch.parallel.launch import run_processes
+    run_processes([[sys.executable, os.path.abspath(__file__), "--rank",
+                    str(r), "--world", str(world), "--rank-out", out]
+                   for r in range(world)], None, out, RANK_TIMEOUT_S)
 
 
 def phase_ranks(scene) -> dict:
@@ -2153,7 +2147,6 @@ def phase_ranks(scene) -> dict:
         torch.cuda.synchronize()
         return time.time() - t0, img.cpu().numpy()
 
-    one_s = [one_process()[0]]
     # the same job in a fresh process of its own, a world of one: the
     # one-process frame timed as a rank's is, free of this process's state
     lone = os.path.join(out, "world1")
@@ -2167,7 +2160,7 @@ def phase_ranks(scene) -> dict:
     spawn_ranks(out, RANKS)
     ranks_s = time.time() - t0
     s, one = one_process()
-    one_s.append(s)
+    one_s = [s]
     if not np.array_equal(fresh_img, one):
         raise AssertionError("the world-of-one rank's frame differs from "
                              "this process's")
@@ -2207,14 +2200,77 @@ def phase_ranks(scene) -> dict:
         if min(res["launches"].values()) <= 0 or \
                 min(res["train_launches"].values()) <= 0:
             raise AssertionError(f"rank {r} launched no kernel: {res}")
+    ranks_entry_points(out)
     return by_path
+
+
+def ranks_entry_points(out: str) -> None:
+    """The multi-GPU path's entry points on this card, their ranks sharing
+    it over gloo: the CLI as CLI_RANKS ranks under torchrun, each run's
+    rank-0 PFM held to the one-process CLI's bit for bit and written by
+    rank 0 alone, and meanwhile ``entry.dryrun_multichip(DRYRUN_RANKS)``:
+    their ranks spend most of their lives starting up."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from simplepath_tpu_torch import cli
+    from simplepath_tpu_torch.entry import dryrun_multichip
+    from simplepath_tpu_torch.parallel.launch import package_env, run_processes
+    from simplepath_tpu_torch.utils import load_checkpoint
+
+    t0 = time.time()
+    d = os.path.join(out, "cli")
+    os.makedirs(d)
+    ck_one, ck_ranks, ck_cut = (os.path.join(d, f) for f in
+                                ("ck_one.npz", "ck_ranks.npz", "ck_cut.npz"))
+    passes = [IBL_TEST_SCENE, "--samples", "8", "--spp-chunk", "4",
+              "--no-progress"]
+    forest = [os.path.join(GOLDEN_SCENES, "g_blob.sp"), "--samples", "2",
+              "--geom-shards", "2"]
+    one = {"passes": os.path.join(d, "one_passes.pfm"),
+           "forest": os.path.join(d, "one_forest.pfm")}
+    cut_checkpoint(ck_cut)
+    runs = {"passes": (passes + ["--checkpoint", ck_ranks], one["passes"]),
+            "resumed": (passes + ["--checkpoint", ck_cut], one["passes"]),
+            "forest": (forest, one["forest"])}
+    cmds = [[sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={CLI_RANKS}", "-m", "simplepath_tpu_torch.cli",
+             *args, "--output", os.path.join(d, f"ranks_{name}.pfm"),
+             "--dist-backend", "gloo"] for name, (args, _) in runs.items()]
+    with ThreadPoolExecutor(1) as pool:
+        cli_runs = pool.submit(run_processes, cmds,
+                               [package_env()] * len(cmds),
+                               os.path.join(d, "logs"), RANK_TIMEOUT_S,
+                               names=list(runs), cwd=HERE)
+        dry = dryrun_multichip(DRYRUN_RANKS, backend="gloo")
+        emit("ranks", check="dryrun_multichip", world=DRYRUN_RANKS,
+             backend="gloo", seconds=time.time() - t0, **dry)
+        for name, args in (("passes", passes + ["--checkpoint", ck_one]),
+                           ("forest", forest)):
+            if cli.main(args + ["--output", one[name]]) != 0:
+                raise AssertionError(f"the one-process CLI failed ({name})")
+        logs = cli_runs.result()
+    res = {}
+    for (name, (_, ref)), log in zip(runs.items(), logs):
+        with open(os.path.join(d, f"ranks_{name}.pfm"), "rb") as f, \
+                open(ref, "rb") as g:
+            equal = f.read() == g.read()
+        res[name] = dict(equals_one_process=equal, wrote=log.count("Wrote "))
+        if not equal or res[name]["wrote"] != 1:
+            raise AssertionError(f"the CLI over {CLI_RANKS} ranks ({name}) "
+                                 f"departs from one process: {res[name]}")
+    done = load_checkpoint(ck_ranks)[1]
+    emit("ranks", check="cli_over_ranks", world=CLI_RANKS, backend="gloo",
+         checkpoint_samples=done, seconds_with_dryrun=time.time() - t0, **res)
+    if done != 8:
+        raise AssertionError(f"rank 0's checkpoint holds {done} of 8 samples")
 
 
 # The BVH topologies besides the default that the topology phase drives,
 # each as the environment its processes are started with (the knobs are read
 # at import), and the order of its processes: the default topology's frame
-# first and last, each other topology's kernels, parity and frame, then its
-# frame alone again, so that every topology's frame is timed in turns; then
+# first and last, each other topology's kernels, parity and frame between
+# them, so that every topology's frame is timed between two of the default's;
+# then
 # the leaf layouts that only need checking (the ``check`` job: kernels,
 # parity and one frame): the leaf meta read as three floats (9K not a
 # multiple of 4), one slot a lane with idle lanes (K=5), three-row leaves and
@@ -2227,7 +2283,7 @@ TOPOLOGIES = {"w8_k12": {"SIMPLEPATH_BVH_WIDTH": "8", "SIMPLEPATH_BVH_LEAF": "12
               "w8_k29": {"SIMPLEPATH_BVH_WIDTH": "8", "SIMPLEPATH_BVH_LEAF": "29"},
               "w16_k29": {"SIMPLEPATH_BVH_WIDTH": "16", "SIMPLEPATH_BVH_LEAF": "29"}}
 TOPOLOGY_TURNS = (("w8_k12", "frame"), ("w16_k12", "full"), ("w8_k24", "full"),
-                  ("w8_k24", "frame"), ("w16_k12", "frame"), ("w8_k12", "frame"),
+                  ("w8_k12", "frame"),
                   ("w8_k5", "check"), ("w8_k29", "check"), ("w16_k29", "check"))
 TOPOLOGY_TIMEOUT_S = 400
 

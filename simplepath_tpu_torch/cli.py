@@ -5,7 +5,13 @@ Counterpart of ``simplepath_tpu/cli.py``, with the same flags:
     python -m simplepath_tpu_torch.cli [--samples N] [--integrator NAME]
                                        [--spp-chunk N] [--checkpoint PATH]
                                        [--geom-shards N] [--platform cpu]
+                                       [--dist-backend nccl|gloo]
                                        [--test] <scene.sp | ->
+
+Over every GPU of the host, one rank a GPU:
+
+    torchrun --standalone --nproc-per-node 4 -m simplepath_tpu_torch.cli \
+        scenes/bunny_bench.sp [--geom-shards 4]
 
 The render runs on CUDA and the command fails without a CUDA device, unless
 ``--platform`` names another torch device (``--platform cpu`` runs the
@@ -24,6 +30,18 @@ sub-BVHs on the render device (``parallel/geom_shard.py``; the forest is
 cached beside the scene) and renders through it, progressive and
 checkpointed passes included.  ``--profile DIR`` writes a
 ``torch.profiler`` trace.
+
+Launched as several ranks (``WORLD_SIZE`` > 1 in the environment, as
+``torchrun`` sets it), every rank joins the process group
+(``parallel/multihost.init_distributed``: GPU ``LOCAL_RANK``, NCCL unless
+``--dist-backend`` names gloo) before it loads the scene.  Rank 0 loads
+first, filling the geometry and forest caches, and the others load warm
+after it.  A plain render gives each rank its block of every chunk
+(``render_image_multihost``); ``--geom-shards N`` spreads the forest over
+the ranks, N / world shards a rank (N must be a multiple of the world).
+Only rank 0 prints and writes the PFM and the checkpoint; every rank reads
+the checkpoint to resume.  Without ``WORLD_SIZE`` the CLI runs as one
+process, as it always has.
 """
 
 from __future__ import annotations
@@ -35,8 +53,15 @@ import logging
 import os
 import sys
 import time
+from datetime import timedelta
 
 from .scene.types import INTEGRATORS
+
+# Over ranks: a collective waits at most this long for the others (they
+# stay within a chunk of each other once loaded); the load, where rank 0
+# may build a large scene's caches cold while the others wait, has longer.
+COLLECTIVE_TIMEOUT = timedelta(minutes=3)
+LOAD_TIMEOUT = timedelta(minutes=30)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -66,7 +91,15 @@ def _parser() -> argparse.ArgumentParser:
                     help="disable the progress bar in progressive mode")
     ap.add_argument("--geom-shards", type=int, default=0, metavar="N",
                     help="build the BVH as a forest of N shards on the "
-                         "render device and render through it")
+                         "render device and render through it; over "
+                         "ranks, N / world shards on each rank's GPU")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="over ranks (WORLD_SIZE > 1, e.g. under torchrun): "
+                         "the process group's backend (default: nccl on "
+                         "CUDA, one GPU a rank; gloo on the CPU; gloo lets "
+                         "ranks share a GPU). Rank 0 builds the geometry "
+                         "cache and the others load it warm; with "
+                         "SIMPLEPATH_CACHE=0 every rank builds its own")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the render into DIR")
     return ap
@@ -85,28 +118,85 @@ def main(argv=None) -> int:
             tests, "test_torch_*.py")))])
     if args.scene is None:
         ap.error("a scene file (or '-') is required")
+    ranks = _join_ranks(ap, args)
+    try:
+        return _run(ap, args, ranks)
+    finally:
+        if ranks is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+class _Ranks:
+    """This process's place among the ranks of the CLI: ``rank`` of
+    ``world`` over ``backend``, rendering on ``device``; ``coord`` is a
+    gloo group of every rank for the load's barriers and the stats."""
+
+    def __init__(self, device):
+        import torch.distributed as dist
+        self.device = device
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+        self.backend = str(dist.get_backend())
+        self.coord = dist.new_group(backend="gloo", timeout=LOAD_TIMEOUT)
+
+
+def _join_ranks(ap, args):
+    """Join the process group when launched as one of several ranks
+    (``WORLD_SIZE`` > 1) → :class:`_Ranks`, or None for one process."""
+    from .parallel.multihost import (env_topology, init_distributed,
+                                     rank_device)
+    world, _, local_rank, local_world = env_topology()
+    if world <= 1:
+        if args.dist_backend:
+            ap.error("--dist-backend needs several ranks (WORLD_SIZE > 1, "
+                     "as under torchrun)")
+        return None
+    try:
+        device, backend = rank_device(local_rank, local_world,
+                                      args.dist_backend, args.platform)
+    except RuntimeError as e:
+        ap.error(str(e))
+    init_distributed("env://", backend=backend, device=device,
+                     timeout=COLLECTIVE_TIMEOUT)
+    return _Ranks(device)
+
+
+def _run(ap, args, ranks) -> int:
     import numpy as np
     import torch
 
     from .core.rng import prng_key
     from .device import resolve_device
     from .io.pfm import write_image
-    from .scene.build import build_scene, load_scene
-    from .scene.parser import parse_sp
     from .utils import format_hms
 
-    device = resolve_device(args.platform)
+    lead = ranks is None or ranks.rank == 0
+    device = ranks.device if ranks else resolve_device(args.platform)
+    geom_mesh = None
+    if args.geom_shards > 1:
+        from .parallel.geom_shard import make_geom_mesh
+        try:
+            geom_mesh = make_geom_mesh(args.geom_shards)
+        except ValueError as e:
+            ap.error(str(e))
+
     t0 = time.time()
-    use_bvh = False if args.geom_shards > 1 else None  # the forest replaces it
-    if args.scene == "-":
-        scene = build_scene(parse_sp(sys.stdin.read()),
-                            cli_integrator=args.integrator, use_bvh=use_bvh,
-                            device=device)
-        out_dir = os.getcwd()
+    text = None
+    if args.scene == "-":               # rank 0 reads it, and sends it on
+        text = [sys.stdin.read() if lead else None]
+        if ranks is not None:
+            import torch.distributed as dist
+            dist.broadcast_object_list(text, src=0, group=ranks.coord)
+        text = text[0]
+    if ranks is None:
+        scene, out_dir = _load(ap, args, device, geom_mesh, text)
     else:
-        scene = load_scene(args.scene, cli_integrator=args.integrator,
-                           use_bvh=use_bvh, device=device)
-        out_dir = os.path.dirname(os.path.abspath(args.scene))
+        from .parallel.multihost import rank_zero_first
+        with rank_zero_first(ranks.coord, LOAD_TIMEOUT):
+            if lead and device.type == "cuda":
+                from .render import cuda_traverse
+                cuda_traverse.build_library()   # once, before the others
+            scene, out_dir = _load(ap, args, device, geom_mesh, text)
     t_parse = time.time() - t0
 
     prof = contextlib.nullcontext()
@@ -118,14 +208,18 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     with prof:
-        img = _render(ap, args, scene, out_dir, prng_key(args.seed, device),
-                      device)
+        img = _render(args, scene, prng_key(args.seed, device), device,
+                      ranks)
         img = img.cpu().numpy()         # waits for the device
     t_render = time.time() - t0
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        name = "trace.json" if ranks is None else f"trace_rank{ranks.rank}.json"
+        prof.export_chrome_trace(os.path.join(args.profile, name))
 
+    devices = _device_stats(device, ranks) if args.stats else None
+    if not lead:
+        return 0
     out = args.output or os.path.join(out_dir, scene.static.output_file_name)
     write_image(out, np.asarray(img))
 
@@ -137,30 +231,76 @@ def main(argv=None) -> int:
     if args.stats:
         print(f"parse: {t_parse:.2f}s  render: {t_render:.2f}s  "
               f"primary rays/s: {rays / max(t_render, 1e-9):,.0f}")
+        print(f"world: {1 if ranks is None else ranks.world}  backend: "
+              f"{'none' if ranks is None else ranks.backend}")
+        for r, (name, peak) in enumerate(devices):
+            print(f"rank {r}: {name}  peak device memory: "
+                  + ("n/a" if peak is None else f"{peak} B"))
     return 0
 
 
-def _render(ap, args, scene, out_dir, key, device):
+def _load(ap, args, device, geom_mesh, text):
+    """The scene on ``device`` → (scene, directory of its output).  From
+    the file, or from ``text`` for a scene given on stdin; with a geometry
+    mesh, as its forest (kept in the scene directory's cache)."""
+    from .scene.build import build_scene, load_scene
+    from .scene.parser import parse_sp
+
+    use_bvh = False if geom_mesh is not None else None  # the forest replaces it
+    if args.scene == "-":
+        scene = build_scene(parse_sp(text),
+                            cli_integrator=args.integrator, use_bvh=use_bvh,
+                            device=device)
+        out_dir = os.getcwd()
+    else:
+        scene = load_scene(args.scene, cli_integrator=args.integrator,
+                           use_bvh=use_bvh, device=device)
+        out_dir = os.path.dirname(os.path.abspath(args.scene))
+    if geom_mesh is not None:
+        from .parallel.geom_shard import shard_scene_geometry
+        try:
+            scene = shard_scene_geometry(scene, geom_mesh, cache_dir=out_dir)
+        except ValueError as e:
+            ap.error(str(e))
+    return scene, out_dir
+
+
+def _device_stats(device, ranks) -> list:
+    """Every rank's (device and its name, peak device memory in bytes or
+    None), in rank order."""
+    import torch
+
+    if device.type == "cuda":
+        mine = (f"{device} {torch.cuda.get_device_name(device)}",
+                torch.cuda.max_memory_allocated(device))
+    else:
+        mine = (str(device), None)
+    if ranks is None:
+        return [mine]
+    import torch.distributed as dist
+    every = [None] * ranks.world
+    dist.all_gather_object(every, mine, group=ranks.coord)
+    return every
+
+
+def _render(args, scene, key, device, ranks):
     """The film: one chunked render, or progressive passes; through the
-    forest with ``--geom-shards``."""
+    forest with ``--geom-shards``; over the ranks when there are several."""
     from .parallel.mesh import render_image_sharded
     from .render.film import render_image_progressive
 
     render_fn = render_image_sharded
     if args.geom_shards > 1:
-        from .parallel.geom_shard import (make_geom_mesh,
-                                          render_image_geom_sharded,
-                                          shard_scene_geometry)
-        mesh = make_geom_mesh(args.geom_shards)
-        try:
-            scene = shard_scene_geometry(scene, mesh, cache_dir=out_dir)
-        except ValueError as e:
-            ap.error(str(e))
+        from .parallel.geom_shard import render_image_geom_sharded
         render_fn = render_image_geom_sharded
+    elif ranks is not None:
+        from .parallel.multihost import render_image_multihost
+        render_fn = render_image_multihost
     if args.checkpoint or 0 < args.spp_chunk < args.samples:
         return render_image_progressive(
             scene, args.samples, key, chunk=args.spp_chunk or min(16, args.samples),
-            checkpoint_path=args.checkpoint, progress=not args.no_progress,
+            checkpoint_path=args.checkpoint,
+            progress=not args.no_progress and (ranks is None or ranks.rank == 0),
             render_fn=render_fn, device=device)
     return render_fn(scene, args.samples, key, device=device)
 

@@ -10,16 +10,29 @@ each chunk is all-gathered, and every rank returns the whole frame.  The
 train step averages the loss and the gradients with one all-reduce, and
 every rank applies the same SGD step.
 
-Backends: NCCL needs a GPU for each rank; gloo runs on the CPU, and on
-CUDA tensors through the host (``mesh.all_reduce``, ``mesh.all_gather_cat``),
-which is how two ranks share one GPU.  ``backend=None`` picks NCCL on CUDA
-and gloo on the CPU; the caller may name either.  Timeouts are the process
-group's: a barrier or collective that times out raises.
+Starting: under ``torchrun`` (or any launcher that sets ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and
+``MASTER_PORT``) a rank calls ``init_distributed()``, which joins through
+``env://``; a caller that starts its ranks itself passes a ``file://``
+rendezvous and the topology (``parallel/launch.py``).  A rank renders on
+GPU ``LOCAL_RANK`` of its host.
+
+Backends: NCCL needs a GPU for each rank of a host, and asking for it (or
+taking it as the default on CUDA) with more local ranks than GPUs raises;
+gloo runs on the CPU, and on CUDA tensors through the host
+(``mesh.all_reduce``, ``mesh.all_gather_cat``), which is how several ranks
+share one GPU.  ``backend=None`` picks NCCL on CUDA and gloo on the CPU;
+the caller may name either.  Timeouts are the process group's: a barrier
+or collective that times out raises, and under NCCL the watchdog tears the
+process down (``TORCH_NCCL_ASYNC_ERROR_HANDLING=1`` unless set), so a hung
+collective ends the rank and its launcher ends the others.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import os
 
 import torch
 import torch.distributed as dist
@@ -31,33 +44,104 @@ from ..scene.types import Scene
 from .mesh import (CHUNK_RAYS_PER_DEVICE, RayMesh, all_gather_cat, all_reduce,
                    make_ray_mesh, pad_to_multiple, shard_pixels)
 
-__all__ = ["init_distributed", "render_image_multihost",
-           "train_step_multihost", "DEFAULT_TIMEOUT"]
+__all__ = ["init_distributed", "env_topology", "rank_device",
+           "rank_zero_first",
+           "render_image_multihost", "train_step_multihost",
+           "DEFAULT_TIMEOUT"]
 
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
 
 
-def init_distributed(init_method: str, world_size: int, rank: int,
+def env_topology() -> tuple[int, int, int, int]:
+    """(world size, rank, local rank, local world size) as ``torchrun``
+    sets them in the environment; unset, a lone process on one host."""
+    def get(name, default):
+        value = os.environ.get(name, "")
+        return int(value) if value else default
+
+    world, rank = get("WORLD_SIZE", 1), get("RANK", 0)
+    return world, rank, get("LOCAL_RANK", rank), get("LOCAL_WORLD_SIZE", world)
+
+
+def rank_device(local_rank: int, local_world_size: int,
+                backend: str | None = None, device=None
+                ) -> tuple[torch.device, str]:
+    """The device a rank renders on and the backend it joins with, checked
+    before any process group starts.
+
+    ``device=None`` means CUDA (raises without one): GPU ``local_rank``.
+    NCCL, named or the default on CUDA, takes one GPU a rank: more local
+    ranks than GPUs raises, naming both counts.  Named gloo lets the local
+    ranks share the GPUs (GPU ``local_rank % count``).  A device given
+    explicitly is taken as it is; NCCL on a device that is not CUDA
+    raises.  ``backend=None`` means NCCL on CUDA and gloo on the CPU."""
+    if device is None:
+        resolve_device("cuda")                 # raises without CUDA
+        n_gpus = torch.cuda.device_count()
+        if backend in (None, "nccl") and local_world_size > n_gpus:
+            raise RuntimeError(
+                f"NCCL takes one GPU a rank: {local_world_size} ranks on "
+                f"this host and {n_gpus} GPU(s) visible; start at most "
+                f"{n_gpus} ranks a host, or name the gloo backend to share "
+                "GPUs")
+        device = torch.device("cuda", local_rank % n_gpus)
+    device = resolve_device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend == "nccl" and device.type != "cuda":
+        raise RuntimeError(f"NCCL runs on CUDA devices; this rank's device "
+                           f"is {device}")
+    return device, backend
+
+
+def init_distributed(init_method: str = "env://",
+                     world_size: int | None = None, rank: int | None = None,
                      backend: str | None = None,
                      timeout: datetime.timedelta = DEFAULT_TIMEOUT,
                      device=None) -> torch.device:
-    """``torch.distributed.init_process_group`` with the topology given:
-    ``init_method`` (``"tcp://host:port"`` or ``"file:///path"``),
-    ``world_size`` and this process's ``rank``.  Returns the device this
-    rank renders on: ``device=None`` means CUDA (raises without one), GPU
-    ``rank % device_count``, one device per rank.  ``backend=None`` means
-    NCCL on CUDA and gloo on the CPU."""
-    if device is None:
-        resolve_device(None)                   # raises without CUDA
-        device = torch.device("cuda", rank % torch.cuda.device_count())
-    device = resolve_device(device)
+    """``torch.distributed.init_process_group`` → the device this rank
+    renders on (:func:`rank_device`; a CUDA device is made current).
+
+    ``init_method`` is ``"env://"`` (``torchrun``: ``MASTER_ADDR`` and
+    ``MASTER_PORT``), ``"tcp://host:port"`` or ``"file:///path"``.  With
+    ``world_size`` and ``rank`` None they come from ``WORLD_SIZE`` and
+    ``RANK``, and the rank's place on its host from ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE``; given explicitly, every rank is taken to be on
+    this host (local rank = rank).  ``backend=None`` means NCCL on CUDA and
+    gloo on the CPU."""
+    if rank is None or world_size is None:
+        world_size, rank, local_rank, local_world = env_topology()
+    else:
+        local_rank, local_world = rank, world_size
+    device, backend = rank_device(local_rank, local_world, backend, device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    if backend is None:
-        backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend == "nccl":
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "1")
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank, timeout=timeout)
     return device
+
+
+@contextlib.contextmanager
+def rank_zero_first(group, timeout: datetime.timedelta):
+    """Rank 0 runs the body first while the other ranks wait; then they run
+    it together, and every rank leaves once all have finished.  For work
+    whose first run fills a cache that the others then read (a scene's
+    geometry and forest: one cold build, not one a rank).  ``group`` is a
+    gloo group of every rank (``dist.new_group(backend="gloo")``, whatever
+    the default backend), whose barrier names a rank that does not arrive
+    within ``timeout``, and raises."""
+    def barrier():
+        dist.monitored_barrier(group, timeout=timeout)
+
+    first = dist.get_rank() == 0
+    if not first:
+        barrier()
+    yield
+    if first:
+        barrier()
+    barrier()
 
 
 def _coordination_barrier(mesh: RayMesh,

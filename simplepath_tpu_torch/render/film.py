@@ -131,12 +131,19 @@ def render_image_progressive(scene: Scene, spp: int, key: Tensor,
 
     ``render_fn(scene, spp, key, integrator=..., spp_offset=...,
     device=...)`` renders a pass instead of ``render_image_sharded``: the
-    CLI passes ``geom_shard.render_image_geom_sharded`` this way.
+    CLI passes ``geom_shard.render_image_geom_sharded`` and
+    ``multihost.render_image_multihost`` this way.  Over the ranks of a
+    ``torch.distributed`` process group every rank reads the checkpoint, so
+    all start at the same sample, and only rank 0 writes it.
     """
+    import torch.distributed as dist
+
     from ..parallel.mesh import render_image_sharded
     from ..utils import ProgressBar, load_checkpoint, save_checkpoint
 
     device = resolve_device(device)
+    writes = not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
     render_fn = render_fn or render_image_sharded
     h, w = scene.static.height, scene.static.width
     film_sum = np.zeros((h, w, 3), np.float32)
@@ -163,7 +170,9 @@ def render_image_progressive(scene: Scene, spp: int, key: Tensor,
             bar.update(n)
             bar.draw()
         if checkpoint_path and (done - last_ck >= checkpoint_every or done == spp):
-            save_checkpoint(checkpoint_path, film_sum, done, {"spp_target": spp})
+            if writes:
+                save_checkpoint(checkpoint_path, film_sum, done,
+                                {"spp_target": spp})
             last_ck = done
     if bar:
         bar.finish()

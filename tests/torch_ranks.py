@@ -7,13 +7,12 @@ script, is one rank:
 Each rank joins a process group through a ``file://`` rendezvous in OUT_DIR
 (no TCP port to clash between test workers), with a 60 s timeout, runs JOB
 and saves what it computed as ``OUT_DIR/<job>_<rank>.npz``.  ``run_ranks``
-polls the ranks: one that fails, or runs past the time limit, ends them
-all, so a failing rank fails the test at once instead of leaving its peers
-waiting in a collective.
+runs the ranks under ``parallel/launch.run_processes``: one that fails, or
+runs past the time limit, ends them all, so a failing rank fails the test
+at once instead of leaving its peers waiting in a collective.
 """
 
 import os
-import subprocess
 import sys
 import time
 
@@ -22,9 +21,9 @@ ROOT = os.path.dirname(HERE)
 BLOB = os.path.join(HERE, "scenes", "g_blob.sp")
 PG_TIMEOUT_S = 60
 
-
-class RanksFailed(AssertionError):
-    pass
+sys.path.insert(0, ROOT)
+from simplepath_tpu_torch.parallel.launch import (RanksFailed,  # noqa: E402,F401
+                                                  package_env, run_processes)
 
 
 def run_ranks(job: str, world: int, out_dir, timeout: float = 150.0) -> list:
@@ -32,43 +31,13 @@ def run_ranks(job: str, world: int, out_dir, timeout: float = 150.0) -> list:
     numpy arrays a rank), or raise RanksFailed with the failing rank's
     output."""
     out_dir = str(out_dir)
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    env = package_env({k: v for k, v in os.environ.items()
+                       if k not in ("XLA_FLAGS", "JAX_PLATFORMS")})
     env["OMP_NUM_THREADS"] = "1"
-    logs = [open(os.path.join(out_dir, f"{job}_{r}.log"), "w+")
-            for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), job, str(r), str(world),
-         out_dir], stdout=logs[r], stderr=subprocess.STDOUT, env=env)
-        for r in range(world)]
-    deadline = time.time() + timeout
-    failed = None
-    try:
-        while any(p.poll() is None for p in procs):
-            if any(p.returncode not in (None, 0) for p in procs):
-                failed = "a rank failed"
-                break
-            if time.time() > deadline:
-                failed = f"ranks still running after {timeout} s"
-                break
-            time.sleep(0.1)
-        else:
-            if any(p.returncode != 0 for p in procs):
-                failed = "a rank failed"
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    out = []
-    for f in logs:
-        f.seek(0)
-        out.append(f.read())
-        f.close()
-    if failed is not None:
-        raise RanksFailed(f"{job}: {failed}\n" + "\n".join(
-            f"--- rank {r} (exit {p.returncode}):\n{o[-2000:]}"
-            for r, (p, o) in enumerate(zip(procs, out)) if p.returncode))
+    run_processes([[sys.executable, os.path.abspath(__file__), job, str(r),
+                    str(world), out_dir] for r in range(world)],
+                  [env] * world, out_dir, timeout,
+                  names=[f"{job} rank {r}" for r in range(world)])
     import numpy as np
     res = []
     for r in range(world):
@@ -223,7 +192,6 @@ JOBS = {name[4:]: fn for name, fn in globals().items()
 if __name__ == "__main__":
     job, rank, world, OUT = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
         sys.argv[4]
-    sys.path.insert(0, ROOT)
     import datetime
 
     import numpy as np
