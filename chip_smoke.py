@@ -453,11 +453,15 @@ def compare_case(kernel: str, case: str, records, rays) -> dict:
     fn = ct.closest if kernel == "closest" else ct.anyhit
     plain = ct.closest_plain if kernel == "closest" else ct.anyhit_plain
 
+    # on the CPU (a rehearsal) the wrapper runs the plain version, and
+    # there is no device time to take
+    cuda = records.is_cuda
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     out = fn(records, ro, rd, t_min, t_max)      # warm-up launch
-    torch.cuda.synchronize()                     # surfaces a fault in the run
+    sync()                                       # surfaces a fault in the run
     stats: dict = {}
     ref = plain(records, ro, rd, t_min, t_max, stats=stats)
-    torch.cuda.synchronize()
+    sync()
 
     res = {"kernel": kernel, "case": case, "n": n}
     if kernel == "closest":
@@ -488,9 +492,12 @@ def compare_case(kernel: str, case: str, records, rays) -> dict:
         raise AssertionError(f"kernel {kernel} disagrees with its plain "
                              f"version on {case} rays: {bad}")
 
-    res["kernel_ms"] = time_cuda(lambda: fn(records, ro, rd, t_min, t_max), 50)
-    res["plain_ms"] = time_cuda(lambda: plain(records, ro, rd, t_min, t_max), 1,
-                                run_ahead=False)
+    res["kernel_ms"] = res["plain_ms"] = None
+    if cuda:
+        res["kernel_ms"] = time_cuda(lambda: fn(records, ro, rd, t_min, t_max),
+                                     50)
+        res["plain_ms"] = time_cuda(lambda: plain(records, ro, rd, t_min,
+                                                  t_max), 1, run_ahead=False)
 
     # per-ray visit counts of the plain version, which walks the same rows:
     # how long the chains are, and what lock step costs when 32 rays share a
@@ -1196,10 +1203,11 @@ def phase_cli() -> None:
         raise AssertionError("the resumed film differs from the uninterrupted one")
 
 
-def cut_checkpoint(path: str) -> None:
-    """The cli phase's progressive render (its scene, 8 spp in passes of 4)
-    cut as its second pass starts: the checkpoint at ``path`` keeps the
-    first pass's 4 samples."""
+def cut_checkpoint(path: str, scene: str = IBL_TEST_SCENE, spp: int = 8,
+                   chunk: int = 4, device=None) -> None:
+    """The CLI's progressive render of ``scene`` (by default the cli
+    phase's: 8 spp in passes of 4) cut as its second pass starts: the
+    checkpoint at ``path`` keeps the first pass's ``chunk`` samples."""
     import simplepath_tpu_torch as sp
     from simplepath_tpu_torch.core.rng import prng_key
     from simplepath_tpu_torch.parallel import mesh
@@ -1216,9 +1224,10 @@ def cut_checkpoint(path: str) -> None:
         return real(*a, **kw)
 
     try:
-        render_image_progressive(sp.load_scene(IBL_TEST_SCENE), 8, prng_key(0),
-                                 chunk=4, checkpoint_path=path,
-                                 checkpoint_every=4, render_fn=dying)
+        render_image_progressive(sp.load_scene(scene, device=device), spp,
+                                 prng_key(0, device), chunk=chunk,
+                                 checkpoint_path=path, checkpoint_every=chunk,
+                                 render_fn=dying, device=device)
         raise AssertionError("the cut render was not cut")
     except KeyboardInterrupt:
         pass

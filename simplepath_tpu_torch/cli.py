@@ -39,9 +39,12 @@ first, filling the geometry and forest caches, and the others load warm
 after it.  A plain render gives each rank its block of every chunk
 (``render_image_multihost``); ``--geom-shards N`` spreads the forest over
 the ranks, N / world shards a rank (N must be a multiple of the world).
-Only rank 0 prints and writes the PFM and the checkpoint; every rank reads
-the checkpoint to resume.  Without ``WORLD_SIZE`` the CLI runs as one
-process, as it always has.
+Only rank 0 prints and writes the PFM and the checkpoint, and only rank 0
+reads the checkpoint to resume: it sends the film and its sample count to
+the others, so ranks on hosts that share no file system (``torchrun
+--nnodes 2``, each host on its own copy of the scene) resume together, and
+only rank 0's host needs the file.  Each host builds its own caches.
+Without ``WORLD_SIZE`` the CLI runs as one process, as it always has.
 """
 
 from __future__ import annotations
@@ -190,13 +193,16 @@ def _run(ap, args, ranks) -> int:
         text = text[0]
     if ranks is None:
         scene, out_dir = _load(ap, args, device, geom_mesh, text)
+        t_load = time.time() - t0
     else:
         from .parallel.multihost import rank_zero_first
         with rank_zero_first(ranks.coord, LOAD_TIMEOUT):
+            t1 = time.time()            # this rank's own load, not its wait
             if lead and device.type == "cuda":
                 from .render import cuda_traverse
                 cuda_traverse.build_library()   # once, before the others
             scene, out_dir = _load(ap, args, device, geom_mesh, text)
+            t_load = time.time() - t1
     t_parse = time.time() - t0
 
     prof = contextlib.nullcontext()
@@ -217,7 +223,7 @@ def _run(ap, args, ranks) -> int:
         name = "trace.json" if ranks is None else f"trace_rank{ranks.rank}.json"
         prof.export_chrome_trace(os.path.join(args.profile, name))
 
-    devices = _device_stats(device, ranks) if args.stats else None
+    devices = _device_stats(device, ranks, t_load) if args.stats else None
     if not lead:
         return 0
     out = args.output or os.path.join(out_dir, scene.static.output_file_name)
@@ -233,9 +239,10 @@ def _run(ap, args, ranks) -> int:
               f"primary rays/s: {rays / max(t_render, 1e-9):,.0f}")
         print(f"world: {1 if ranks is None else ranks.world}  backend: "
               f"{'none' if ranks is None else ranks.backend}")
-        for r, (name, peak) in enumerate(devices):
+        for r, (name, peak, load_s) in enumerate(devices):
             print(f"rank {r}: {name}  peak device memory: "
-                  + ("n/a" if peak is None else f"{peak} B"))
+                  + ("n/a" if peak is None else f"{peak} B")
+                  + f"  load: {load_s:.2f}s")
     return 0
 
 
@@ -265,16 +272,16 @@ def _load(ap, args, device, geom_mesh, text):
     return scene, out_dir
 
 
-def _device_stats(device, ranks) -> list:
+def _device_stats(device, ranks, load_s: float) -> list:
     """Every rank's (device and its name, peak device memory in bytes or
-    None), in rank order."""
+    None, seconds to load the scene), in rank order."""
     import torch
 
     if device.type == "cuda":
         mine = (f"{device} {torch.cuda.get_device_name(device)}",
-                torch.cuda.max_memory_allocated(device))
+                torch.cuda.max_memory_allocated(device), load_s)
     else:
-        mine = (str(device), None)
+        mine = (str(device), None, load_s)
     if ranks is None:
         return [mine]
     import torch.distributed as dist

@@ -13,6 +13,7 @@ import ctypes
 import logging
 import os
 import subprocess
+import time
 
 import numpy as np
 
@@ -28,11 +29,18 @@ _lib_tried = False
 
 
 def _compile() -> str | None:
+    # into a file of this process's own, then moved into place: the ranks
+    # of a host that finds no build may all compile at once
+    tmp = f"{_SO_PATH}.{os.getpid()}.tmp"
     try:
+        t0 = time.time()
         os.makedirs(BUILD_DIR, exist_ok=True)
         cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-               _SRC, "-o", _SO_PATH]
+               _SRC, "-o", tmp]
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO_PATH)
+        logger.info("native BVH builder built: %s (%.1f s)", _SO_PATH,
+                    time.time() - t0)
         return _SO_PATH
     except Exception as e:  # pragma: no cover - toolchain-dependent
         logger.info("native build unavailable (%s); using the numpy builder", e)

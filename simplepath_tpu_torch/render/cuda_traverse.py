@@ -38,13 +38,17 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import logging
 import os
 import subprocess
+import time
 
 import torch
 from torch import Tensor
 
 from ..scene.bvh import LEAF_ROWS, LEAF_SIZE, RECORD_WIDTH, WIDTH
+
+logger = logging.getLogger("simplepath_tpu_torch")
 
 __all__ = ["closest", "anyhit", "closest_plain", "anyhit_plain",
            "launch_counts", "reset_launch_counts", "plain_versions",
@@ -173,7 +177,9 @@ def build_library(verbose: bool = False) -> str:
     if (os.path.exists(path)
             and os.path.getmtime(path) >= os.path.getmtime(KERNEL_SOURCE)):
         return path
+    t0 = time.time()
     log = _compile_source(KERNEL_SOURCE, path, verbose=verbose)
+    logger.info("traversal library built: %s (%.1f s)", path, time.time() - t0)
     if verbose:
         print(log)
     return path

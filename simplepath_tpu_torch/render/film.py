@@ -133,8 +133,11 @@ def render_image_progressive(scene: Scene, spp: int, key: Tensor,
     device=...)`` renders a pass instead of ``render_image_sharded``: the
     CLI passes ``geom_shard.render_image_geom_sharded`` and
     ``multihost.render_image_multihost`` this way.  Over the ranks of a
-    ``torch.distributed`` process group every rank reads the checkpoint, so
-    all start at the same sample, and only rank 0 writes it.
+    ``torch.distributed`` process group, where every rank passes a
+    ``checkpoint_path`` (each its own, on hosts that share no file system),
+    rank 0 alone reads the checkpoint and sends its sum and count to the
+    others, so all start at its sample whatever their disks hold; only
+    rank 0 writes it.
     """
     import torch.distributed as dist
 
@@ -142,18 +145,23 @@ def render_image_progressive(scene: Scene, spp: int, key: Tensor,
     from ..utils import ProgressBar, load_checkpoint, save_checkpoint
 
     device = resolve_device(device)
-    writes = not (dist.is_available() and dist.is_initialized()) \
-        or dist.get_rank() == 0
+    ranks = dist.is_available() and dist.is_initialized()
+    lead = not ranks or dist.get_rank() == 0
     render_fn = render_fn or render_image_sharded
     h, w = scene.static.height, scene.static.width
     film_sum = np.zeros((h, w, 3), np.float32)
     done = 0
-    if checkpoint_path:
+    if checkpoint_path and lead:
         ck = load_checkpoint(checkpoint_path)
         if ck is not None:
             film_ck, done_ck, meta = ck
             if meta.get("spp_target") == spp and film_ck.shape == film_sum.shape:
                 film_sum, done = film_ck, done_ck
+    if checkpoint_path and ranks:
+        # under NCCL through the current CUDA device (init_distributed)
+        sent = [film_sum, done]
+        dist.broadcast_object_list(sent, src=0)
+        film_sum, done = sent
 
     bar = ProgressBar(spp, "spp") if progress else None
     if bar and done:
@@ -170,7 +178,7 @@ def render_image_progressive(scene: Scene, spp: int, key: Tensor,
             bar.update(n)
             bar.draw()
         if checkpoint_path and (done - last_ck >= checkpoint_every or done == spp):
-            if writes:
+            if lead:
                 save_checkpoint(checkpoint_path, film_sum, done,
                                 {"spp_target": spp})
             last_ck = done

@@ -9,7 +9,8 @@ one-process CLI:
   its checkpoint, equals the whole one-process render byte for byte, and
   the checkpoint rank 0 writes holds every sample;
 * ``--geom-shards 3`` over 2 ranks stops with the CLI's usage error;
-* a rank other than 0 reads a checkpoint and writes none.
+* a rank other than 0 resumes at the sample count rank 0 sends it and
+  writes no checkpoint.
 
 The three two-rank renders start together, under one supervisor
 (``parallel/launch.run_processes``), to keep the file short.
@@ -30,10 +31,11 @@ from simplepath_tpu_torch.parallel.mesh import render_image_sharded
 from simplepath_tpu_torch.render.film import render_image_progressive
 from simplepath_tpu_torch.utils import load_checkpoint, save_checkpoint
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_ranks import BLOB, cut_checkpoint  # noqa: E402
+
 torch.set_num_threads(1)
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-BLOB = os.path.join(HERE, "scenes", "g_blob.sp")
 PASSES = [BLOB, "--samples", "2", "--spp-chunk", "1", "--no-progress"]
 
 
@@ -47,24 +49,6 @@ def env():
     base = {k: v for k, v in os.environ.items()
             if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     return launch.package_env(dict(base, OMP_NUM_THREADS="1"))
-
-
-def cut_checkpoint(path):
-    """PASSES's render in one process, cut as its second pass starts."""
-    passes = []
-
-    def dying(*a, **kw):
-        passes.append(kw["spp_offset"])
-        if len(passes) == 2:
-            raise KeyboardInterrupt("cut")
-        return render_image_sharded(*a, **kw)
-
-    with pytest.raises(KeyboardInterrupt):
-        render_image_progressive(load_scene(BLOB, device="cpu"), 2,
-                                 prng_key(0), chunk=1, checkpoint_path=path,
-                                 checkpoint_every=1, render_fn=dying,
-                                 device="cpu")
-    assert load_checkpoint(path)[1] == 1
 
 
 @pytest.fixture(scope="module")
@@ -133,14 +117,22 @@ def test_dist_backend_needs_several_ranks(tmp_path, capsys, monkeypatch):
 
 
 def test_only_rank_zero_writes_the_checkpoint(tmp_path, monkeypatch):
-    """A rank other than 0 resumes from the checkpoint and writes none."""
+    """A rank other than 0 resumes at the count rank 0 sends it, reads no
+    checkpoint of its own and writes none."""
     scene = load_scene(BLOB, device="cpu")
     ck = tmp_path / "ck.npz"
     film = np.full((48, 48, 3), 0.5, np.float32)
-    save_checkpoint(str(ck), film, 1, {"spp_target": 2})
+    save_checkpoint(str(ck), np.zeros_like(film), 0, {"spp_target": 2})
     before = ck.read_bytes()
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_rank", lambda group=None: 1)
+    sent = []
+
+    def from_rank_zero(objects, src):      # what rank 0 read from its disk
+        sent.append(src)
+        objects[:] = [film, 1]
+
+    monkeypatch.setattr(dist, "broadcast_object_list", from_rank_zero)
     offsets = []
 
     def one_pass(*a, **kw):
@@ -151,6 +143,7 @@ def test_only_rank_zero_writes_the_checkpoint(tmp_path, monkeypatch):
                                    checkpoint_path=str(ck),
                                    checkpoint_every=1, render_fn=one_pass,
                                    device="cpu")
-    assert offsets == [1]                  # resumed at the checkpoint's count
+    assert sent == [0]
+    assert offsets == [1]                  # resumed at rank 0's count
     assert ck.read_bytes() == before       # and wrote nothing
     assert torch.isfinite(img).all()

@@ -262,3 +262,86 @@ def test_bounce_rays_stand_in_for_a_bounce_never_reached(scenes, monkeypatch):
     # any-hit launch
     assert sets["closest"]["bounce0"][0].shape == (FILM[0] * FILM[1], 3)
     assert sets["anyhit"]["bounce0"][0].shape == (2 * FILM[0] * FILM[1], 3)
+
+
+def test_the_topology_part_runs_at_w16_through_the_plain_versions(
+        scenes, lucy_dir, tmp_path):
+    """tools/torch_lucy_bench.py --topologies w16_k12 on the CPU over the
+    cut lucy scene, in a subprocess (the topology is read at import): both
+    wrappers held to their plain versions on 65,536 primary rays, the rows
+    they visit and their bound counted, no device time; the 1-spp frame
+    within 1e-4 of the default topology's, rendered here."""
+    import json
+    import subprocess
+
+    scene = os.path.join(lucy_dir, "lucy_bench.sp")
+    with open(scene, "w") as f:
+        f.write(small_lucy_text())
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS", "SIMPLEPATH_BVH_WIDTH",
+                        "SIMPLEPATH_BVH_LEAF")}
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "torch_lucy_bench.py"),
+         "--topologies", "w16_k12", "--platform", "cpu", "--scene", scene,
+         "--out", str(tmp_path)], env=dict(env, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=150)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    res = json.loads(proc.stdout.splitlines()[0])
+    assert (res["topology"], res["width"], res["leaf_size"]) == ("w16_k12",
+                                                                 16, 12)
+    assert res["triangles"] == 2 * (GRID - 1) ** 2 and res["ok"]
+    assert [k["kernel"] for k in res["kernels"]] == ["closest", "anyhit"]
+    for k in res["kernels"]:
+        assert k["n"] == 65536 and k["max_abs_err"] == 0.0
+        assert not any(v for key, v in k.items() if key.endswith("_mismatches"))
+        assert k["rows_visited"] > 0 and k["bound_ms"] > 0
+        assert k["kernel_ms"] is None and k["plain_ms"] is None
+    from simplepath_tpu_torch.io.pfm import read_pfm
+    img = read_pfm(str(tmp_path / "w16_k12.pfm"))
+    default = render_image_sharded(scenes[1], 1, prng_key(0),
+                                   device="cpu").numpy()
+    assert img.shape == default.shape and np.isfinite(img).all()
+    assert np.abs(img - default).max() <= 1e-4
+
+
+def test_the_topology_parts_trace_and_brute_force(scenes):
+    """tools/torch_lucy_bench.py's tools for a frame that departs from the
+    default topology's: a traced pixel's radiance is the frame's, bit for
+    bit; the first call whose answer differs between two traces is found,
+    with the ray both asked; every triangle against a ray in float64 finds
+    the hit the traversal found."""
+    import copy
+
+    import torch_lucy_bench as lb
+
+    ts = scenes[1]
+    frame = render_image_sharded(ts, 1, prng_key(0), device="cpu").numpy()
+    xs, ys = torch.tensor([3, 13, 20, 26]), torch.tensor([5, 20, 30, 39])
+    radiance, calls = lb.trace_pixels(ts, xs, ys)
+    assert radiance.tobytes() == frame[ys, xs].tobytes()
+    kinds = [k for k, _ in calls]
+    assert {"closest", "anyhit"} <= set(kinds) and kinds[0] == "closest"
+    first = calls[0][1]
+    assert first["t"].shape == (4,) and first["key"].shape == (4, 9)
+
+    a = (radiance, kinds, [c for _, c in calls])
+    b = copy.deepcopy(a)
+    b[2][0]["t"][1] += 1.0
+    traces = {"w8_k12": a, "other": b}
+    assert lb.first_divergence(traces, 0) is None
+    d = lb.first_divergence(traces, 1)
+    assert (d["call"], d["kind"], d["bounce"], d["rays_equal"]) == \
+        (0, "closest", 0, True)
+    assert d["answers"]["other"]["t"] == d["answers"]["w8_k12"]["t"] + 1.0
+
+    nearest = lb.brute_force(ts, {k: first[k] for k in ("ro", "rd", "t_min",
+                                                        "t_max")})
+    hits = np.isfinite(first["t"])
+    assert hits.any()
+    for i in range(4):
+        if not hits[i]:
+            assert nearest[i] == []
+            continue
+        t, key = nearest[i][0]
+        assert abs(t - first["t"][i]) <= 1e-4 * first["t"][i]
+        assert key == first["key"][i].tolist()

@@ -46,6 +46,16 @@ def run_ranks(job: str, world: int, out_dir, timeout: float = 150.0) -> list:
     return res
 
 
+def cut_checkpoint(path) -> None:
+    """The CLI's progressive render of g_blob (2 spp in 1-spp passes) in
+    one process on the CPU, cut as its second pass starts: the checkpoint at
+    ``path`` holds the first pass's sample."""
+    import chip_smoke
+    from simplepath_tpu_torch.utils import load_checkpoint
+    chip_smoke.cut_checkpoint(str(path), BLOB, 2, 1, "cpu")
+    assert load_checkpoint(str(path))[1] == 1
+
+
 # ---------------------------------------------------------------- the ranks
 
 def _blob_forest(mesh):

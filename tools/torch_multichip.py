@@ -7,9 +7,11 @@ on one GPU in the same run.
     python3 tools/torch_multichip.py --parts dryrun   # the short first check
     python3 tools/torch_multichip.py --world 4 --backend gloo --parts rays
                                                       # four ranks sharing GPUs
+    python3 tools/torch_multichip.py --parts hosts    # two hosts of two GPUs
 
 First it prints every GPU's name and power limit (nvidia-smi), the device
-count, the torch, CUDA and NCCL versions and the host's memory; then one
+count, the torch, CUDA and NCCL versions, the host's memory and the NCCL_*
+variables of the run (its own, and those the hosts part sets); then one
 JSON line a part, in this order:
 
   dryrun  entry.dryrun_multichip(world): a train step over the ranks, the
@@ -30,6 +32,20 @@ JSON line a part, in this order:
           rtol 1e-4; the albedo's update rtol 0.05 / atol 1e-6)
   train   chip_smoke.py's 65,536-pixel albedo step over the ranks against
           one GPU: loss and albedo within rtol / atol 1e-5
+  hosts   the ranks as two hosts that share no file system: two torchrun
+          node groups (--nnodes 2, a static rendezvous on 127.0.0.1) of
+          world/2 ranks, node 1 on the upper half of the GPUs, each node on
+          its own copy of the scene and of the package (no cache, no build,
+          no checkpoint in common), NCCL kept off its peer-to-peer and
+          shared-memory transports so that it takes its network transport
+          (HOSTS_NCCL_ENV; the transport NCCL reports is quoted); on the
+          bench: rays at 1 spp, rank 0's PFM bit-equal to one GPU's, frame
+          seconds in turns (one GPU, the nodes cold, the nodes warm, one
+          GPU); --geom-shards 4 over the nodes, bit-equal to the
+          one-process forest of 4; a 2-spp render in 1-spp passes cut after
+          its first, resumed with the checkpoint on node 0 only, rank 0's
+          PFM equal to the uncut render; each node's cold builds and each
+          rank's load seconds
   lucy    scenes/lucy_bench.sp uncut (its PLY written by io/meshgen into
           the output directory) at 1 spp with --geom-shards 4 over the
           ranks, rank 0 building cold and the others loading warm, held to
@@ -43,7 +59,9 @@ its error and the run goes on to the next; the exit code is 1 if any part
 failed.  The CUDA library is built once, before any rank starts.  Output
 files go to --out (default chip_smoke_out/multichip/).  Imports nothing of
 JAX.  ``--platform cpu --scene tests/scenes/g_blob.sp`` rehearses the flow
-on the CPU over gloo.
+on the CPU over gloo; with ``--backend gloo`` every node of the hosts part
+sees every GPU (on one card both share GPU 0, and NCCL's variables go
+unread).
 """
 
 from __future__ import annotations
@@ -55,6 +73,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -69,7 +88,7 @@ import chip_smoke as cs  # noqa: E402
 from simplepath_tpu_torch.parallel.launch import (package_env,  # noqa: E402
                                                   run_processes)
 
-PARTS = ("dryrun", "rays", "geom", "grid", "train", "lucy")
+PARTS = ("dryrun", "rays", "geom", "grid", "train", "hosts", "lucy")
 OUT = os.path.join(ROOT, "chip_smoke_out", "multichip")
 RAYS_SPP = 4
 GEOM_SHARDS = 4
@@ -77,6 +96,20 @@ CLI_TIMEOUT_S = 900
 LUCY_TIMEOUT_S = 1500
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=3)
 LOAD_TIMEOUT = datetime.timedelta(minutes=30)
+HOSTS_NODES = 2
+HOSTS_SPP = 2                   # the resumed render's, in 1-spp passes
+# NCCL between the node groups of one machine as between hosts: neither
+# peer-to-peer copies nor shared memory, so it takes its network transport
+# (the loopback interface, both nodes being here); INFO prints the
+# transport of each channel
+HOSTS_NCCL_ENV = {"NCCL_P2P_DISABLE": "1", "NCCL_SHM_DISABLE": "1",
+                  "NCCL_SOCKET_IFNAME": "lo", "NCCL_DEBUG": "INFO"}
+# what a node's log says of each build it made or cache entry it read
+BUILD_LINES = {"bvh_builds": "BVH builder:",
+               "geometry_cache_writes": "geometry cache written",
+               "geometry_cache_hits": "geometry cache hit",
+               "traversal_library_builds": "traversal library built",
+               "native_builder_builds": "native BVH builder built"}
 
 
 def emit(part: str, **fields) -> None:
@@ -96,7 +129,10 @@ def header() -> dict:
                 torch=torch.__version__, cuda=torch.version.cuda,
                 nccl=".".join(map(str, torch.cuda.nccl.version())),
                 host_mem_total=mem["MemTotal"].strip(),
-                host_mem_available=mem["MemAvailable"].strip())
+                host_mem_available=mem["MemAvailable"].strip(),
+                nccl_env={k: v for k, v in os.environ.items()
+                          if k.startswith("NCCL_")},
+                hosts_nccl_env=HOSTS_NCCL_ENV)
     for line in gpus:
         print(line, flush=True)
     emit("header", **info)
@@ -122,18 +158,26 @@ def run_cli(args, name: str, cli_args: list, world: int,
     t0 = time.time()
     out = run_processes([cmd], [package_env()], os.path.join(args.out, "logs"),
                         timeout, names=[name], cwd=ROOT)[0]
-    wall = time.time() - t0
-    m = re.search(r"parse: ([0-9.]+)s\s+render: ([0-9.]+)s", out)
-    w = re.search(r"world: (\d+)\s+backend: (\S+)", out)
-    ranks = re.findall(r"rank (\d+): (.+?)  peak device memory: (\S+)", out)
-    res = dict(wall_s=wall, parse_s=float(m.group(1)),
-               render_s=float(m.group(2)), world=int(w.group(1)),
-               backend=w.group(2),
-               devices=[name for _, name, _ in ranks],
-               peak_device_bytes=[None if p == "n/a" else int(p)
-                                  for _, _, p in ranks],
+    res = dict(wall_s=time.time() - t0, **cli_stats(out, name, world),
                cache_writes=out.count("cache written"),
                cache_hits=out.count("cache hit"))
+    return res
+
+
+def cli_stats(out: str, name: str, world: int) -> dict:
+    """What rank 0 of the CLI printed with ``--stats``: render and parse
+    seconds, world, backend, and each rank's device, peak memory and
+    seconds of its own load."""
+    m = re.search(r"parse: ([0-9.]+)s\s+render: ([0-9.]+)s", out)
+    w = re.search(r"world: (\d+)\s+backend: (\S+)", out)
+    ranks = re.findall(r"rank (\d+): (.+?)  peak device memory: (\S+)"
+                       r"(?: B)?  load: ([0-9.]+)s", out)
+    res = dict(parse_s=float(m.group(1)), render_s=float(m.group(2)),
+               world=int(w.group(1)), backend=w.group(2),
+               devices=[name for _, name, _, _ in ranks],
+               peak_device_bytes=[None if p == "n/a" else int(p)
+                                  for _, _, p, _ in ranks],
+               load_s=[float(s) for _, _, _, s in ranks])
     if res["world"] != world:
         raise AssertionError(f"{name}: the CLI ran as {res['world']} ranks, "
                              f"not {world}")
@@ -332,6 +376,174 @@ def part_train(args, refs) -> dict:
     return out
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def make_node(args, d: str) -> str:
+    """A host's own disk in ``d``: a copy of the scene file and of the
+    files it names beside it, and of the package without its build → the
+    scene's path there."""
+    src = os.path.dirname(args.scene)
+    shutil.copytree(os.path.join(ROOT, "simplepath_tpu_torch"),
+                    os.path.join(d, "simplepath_tpu_torch"),
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    with open(args.scene) as f:
+        named = re.findall(r'"([^"]+)"', f.read())
+    for name in [os.path.basename(args.scene), *named]:
+        if os.path.isfile(os.path.join(src, name)):
+            os.makedirs(os.path.dirname(os.path.join(d, name)), exist_ok=True)
+            shutil.copy(os.path.join(src, name), os.path.join(d, name))
+    return os.path.join(d, os.path.basename(args.scene))
+
+
+def node_gpus(args, node: int, per: int) -> str | None:
+    """CUDA_VISIBLE_DEVICES of a node: over NCCL its own ``per`` GPUs;
+    None (every GPU it sees) over gloo, where its ranks share them, and on
+    the CPU."""
+    if args.platform is not None or args.backend == "gloo":
+        return None
+    return ",".join(str(g) for g in range(node * per, (node + 1) * per))
+
+
+def nccl_transport(log: str) -> list:
+    """The transport lines NCCL printed at INFO, once each, without the
+    host and process that printed them."""
+    lines = re.findall(r"NCCL INFO ((?:Channel \d+/\d+ : .*? via \S+)"
+                       r"|(?:Using network \S+)|(?:NET/\S+ : .*))", log)
+    return sorted(set(re.sub(r"\[\d+\]", "[.]", line) for line in lines))[:12]
+
+
+def run_nodes(args, name: str, scenes: list, cli_args: list,
+              checkpoint: bool = False) -> dict:
+    """The CLI as HOSTS_NODES torchrun node groups of world / HOSTS_NODES
+    ranks, node i on ``scenes[i]`` (its own copy, in its own directory,
+    imported from there), its output ``<name>.pfm`` and, with
+    ``checkpoint``, its checkpoint ``ck.npz`` in that directory → rank 0's
+    readings, each node's builds, which nodes wrote the PFM (rank 0's
+    alone, or this raises) and the NCCL transport."""
+    per = args.world // HOSTS_NODES
+    port = free_port()
+    cmds, envs, dirs = [], [], [os.path.dirname(s) for s in scenes]
+    for i, (scene, d) in enumerate(zip(scenes, dirs)):
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               f"--nnodes={HOSTS_NODES}", f"--node-rank={i}",
+               f"--nproc-per-node={per}", "--master-addr=127.0.0.1",
+               f"--master-port={port}", "-m", "simplepath_tpu_torch.cli",
+               scene, *cli_args, "--output", os.path.join(d, f"{name}.pfm"),
+               "--stats", "--no-progress"]
+        if checkpoint:
+            cmd += ["--checkpoint", os.path.join(d, "ck.npz")]
+        if args.platform:
+            cmd += ["--platform", args.platform]
+        if args.backend:
+            cmd += ["--dist-backend", args.backend]
+        env = dict(os.environ, PYTHONPATH=d, **HOSTS_NCCL_ENV)
+        gpus = node_gpus(args, i, per)
+        if gpus is not None:
+            env["CUDA_VISIBLE_DEVICES"] = gpus
+        cmds.append(cmd)
+        envs.append(env)
+    t0 = time.time()
+    # run from the nodes' parent: the checkout's package is not on the path
+    logs = run_processes(cmds, envs, os.path.join(args.out, "logs"),
+                         CLI_TIMEOUT_S, cwd=os.path.dirname(dirs[0]),
+                         names=[f"{name}_node{i}" for i in range(len(cmds))])
+    res = dict(wall_s=time.time() - t0,
+               **cli_stats(logs[0], name, args.world),
+               nodes=[{k: log.count(line) for k, line in BUILD_LINES.items()}
+                      for log in logs],
+               wrote=[os.path.exists(os.path.join(d, f"{name}.pfm"))
+                      for d in dirs],
+               nccl_transport=nccl_transport("\n".join(logs)))
+    if res["wrote"] != [True] + [False] * (len(dirs) - 1):
+        raise AssertionError(f"{name}: rank 0 alone writes the PFM, but the "
+                             f"nodes wrote {res['wrote']}")
+    return res
+
+
+def part_hosts(args, refs) -> dict:
+    """The ranks as two hosts that share no file system (module
+    docstring): rays in turns with one GPU, the forest of 4, and a render
+    resumed with the checkpoint on node 0 only."""
+    from simplepath_tpu_torch.utils import load_checkpoint
+
+    if args.world % HOSTS_NODES:
+        raise ValueError(f"{args.world} ranks do not divide over "
+                         f"{HOSTS_NODES} nodes")
+    root = os.path.join(args.out, "hosts")
+    shutil.rmtree(root, ignore_errors=True)
+    scenes = [make_node(args, os.path.join(root, f"node{i}"))
+              for i in range(HOSTS_NODES)]
+    node0 = os.path.dirname(scenes[0])
+
+    def one_gpu(name, cli_args):
+        path = os.path.join(root, f"{name}.pfm")
+        return run_cli(args, f"hosts_{name}",
+                       [args.scene, *cli_args, "--output", path], 1), path
+
+    # rays: the first run of the nodes finds both cold, the second warm
+    turns, frames = [], []
+    for i, where in enumerate(("one", "nodes", "nodes", "one")):
+        if where == "one":
+            res, path = one_gpu(f"rays_{i}_one", ["--samples", "1"])
+        else:
+            res = run_nodes(args, f"rays_{i}", scenes, ["--samples", "1"])
+            path = os.path.join(node0, f"rays_{i}.pfm")
+        turns.append(dict(res, where=where))
+        frames.append(path)
+    one_s = [t["render_s"] for t in turns if t["where"] == "one"]
+    nodes_s = [t["render_s"] for t in turns if t["where"] == "nodes"]
+    rays = dict(turns=turns, one_gpu_render_s=one_s, nodes_render_s=nodes_s,
+                ratio=sum(nodes_s) / sum(one_s),
+                rank0_pfm_equals_one_gpu=all(same_bytes(frames[0], p)
+                                             for p in frames[1:]))
+
+    forest = ["--samples", "1", "--geom-shards", str(GEOM_SHARDS)]
+    one_forest, one_path = one_gpu("geom_one", forest)
+    nodes_forest = run_nodes(args, "geom", scenes, forest)
+    geom = dict(one_process_forest=one_forest, nodes=nodes_forest,
+                shards_a_rank=GEOM_SHARDS // args.world,
+                rank0_pfm_equals_one_process_forest=same_bytes(
+                    one_path, os.path.join(node0, "geom.pfm")))
+
+    passes = ["--samples", str(HOSTS_SPP), "--spp-chunk", "1"]
+    uncut, uncut_path = one_gpu("uncut_one", passes)
+    # the first 1-spp pass, in this process on one GPU
+    dev = device_of(args)
+    cs.cut_checkpoint(os.path.join(node0, "ck.npz"), args.scene, HOSTS_SPP,
+                      1, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    resumed_run = run_nodes(args, "resumed", scenes, passes, checkpoint=True)
+    resumed = dict(uncut_one_gpu=uncut, nodes=resumed_run,
+                   rank0_pfm_equals_uncut=same_bytes(
+                       uncut_path, os.path.join(node0, "resumed.pfm")),
+                   checkpoint_samples_on_node0=load_checkpoint(
+                       os.path.join(node0, "ck.npz"))[1],
+                   checkpoint_written_on_node1=any(
+                       os.path.exists(os.path.join(os.path.dirname(s),
+                                                   "ck.npz"))
+                       for s in scenes[1:]))
+
+    out = dict(nodes=HOSTS_NODES, ranks_a_node=args.world // HOSTS_NODES,
+               nccl_env=HOSTS_NCCL_ENV,
+               nccl_transport=sorted({t for r in (turns[1], turns[2],
+                                                  nodes_forest, resumed_run)
+                                      for t in r["nccl_transport"]}),
+               rays=rays, geom=geom, resumed=resumed)
+    ok = (rays["rank0_pfm_equals_one_gpu"]
+          and geom["rank0_pfm_equals_one_process_forest"]
+          and resumed["rank0_pfm_equals_uncut"]
+          and resumed["checkpoint_samples_on_node0"] == HOSTS_SPP
+          and not resumed["checkpoint_written_on_node1"])
+    if not ok:
+        raise AssertionError(f"the ranks over two hosts depart: {out}")
+    return out
+
+
 def part_lucy(args, refs) -> dict:
     """Lucy uncut: its forest of 4 over the ranks (rank 0 cold), held to
     the one-BVH frame on one GPU at the lucy gate."""
@@ -487,7 +699,8 @@ def main() -> int:
     ap.add_argument("--rank-job", choices=("grid", "train"), default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
-    args.scene = os.path.abspath(args.scene)
+    # absolute: the hosts part runs its nodes from another directory
+    args.scene, args.out = os.path.abspath(args.scene), os.path.abspath(args.out)
     if args.rank_job:
         rank_job(args)
         return 0
