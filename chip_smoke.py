@@ -25,12 +25,16 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            and n_push histograms exactly equal, hits bit-equal to
            sp_closest's, device ms in turns with sp_closest's: the cost of
            counting; visits a ray and a warp, the lock-step share, the n_push
-           shares); sp_row_chase at 1, 2, 4 and 8 chains of 20,000 hops (refs
-           equal, ns a hop); sp_visit_body in its four modes on the bench's
-           table and on two tables whose rows the fixed ray crosses (output
-           and each lane's keys, refs and slots after 1 and 3 bodies
-           NaN-equal; ns a body at 100,000 bodies on one warp, on a launch
-           that fills every SM and at sp_closest's occupancy)
+           shares); sp_row_chase under both feeds (a TMA bulk copy on an
+           mbarrier; __ldg) at 1, 2, 4 and 8 chains of 20,000 hops on the
+           bench's table (refs equal, ns a hop, each feed timed once) and
+           of 5,461 on a 2 MiB cuda_probes.cycle_table (refs equal, every
+           chain away from its start); sp_visit_body in its
+           four modes on the bench's table and on two tables whose rows the
+           fixed ray crosses (output and each lane's keys, refs and slots
+           after 1 and 3 bodies NaN-equal; ns a body at 100,000 bodies on
+           one warp, on a launch that fills every SM and at sp_closest's
+           occupancy)
   render   the flagship (iterative_rrnee) full frame at --spp samples;
            launch counts per kernel
   paths    the full frame at 1 spp with each other traced integrator, and
@@ -193,6 +197,10 @@ PROBES = ("closest_count", "row_chase", "visit_body")
 # the TPU probes' sizes: hops of a chase, bodies of a visit-body run
 PROBE_HOPS = 20_000
 PROBE_BODIES = 100_000
+# the chase's check on a cycle table of L2's size (2 MiB): once round the
+# cycle and a third of it again, so every chain ends away from its start
+CYCLE_CHECK_ROWS = 4_096
+CYCLE_CHECK_HOPS = CYCLE_CHECK_ROWS + CYCLE_CHECK_ROWS // 3
 # bodies where the visit body is held against its plain version, and where
 # the two are timed side by side (the plain version loops in Python)
 CHECK_BODIES = 3
@@ -692,37 +700,94 @@ def probe_counts(records, case: str, rays) -> dict:
                 **visit_readings(*out[5:], ct.LANES_PER_RAY))
 
 
-def probe_chase(records, hops: int = PROBE_HOPS) -> list:
-    """sp_row_chase at each chain count: refs equal to the plain version's,
-    ns a hop.  Bound: the distinct rows' bytes (a copy is LEAF_ROWS rows)
-    and one compare a hop; latency, not either, sets its time."""
+def chase_readings(table, name: str, hops: int, turns: tuple, flush=None,
+                   plain_ms: bool = False) -> list:
+    """sp_row_chase on one table under both feeds at every chain count:
+    each feed's refs equal to one plain run's (at the most chains, whose
+    first C refs are the C-chain chase's), then device ms with the feeds
+    timed in the order ``turns`` (the least of each feed's; no time where
+    ``turns`` is empty).  ``flush`` (a tensor of several L2s) is zeroed
+    before each timed launch, and each launch is timed alone, so that no
+    row of the last launch is still cached; without it the launches run
+    back to back, warm.  Bound: the distinct rows' bytes (a copy is
+    LEAF_ROWS rows) and one compare a hop; latency, not either, sets its
+    time.  With ``plain_ms``, the plain version's ms at one chain (on the
+    C=1 readings)."""
     from simplepath_tpu_torch.render import cuda_probes as cp
     from simplepath_tpu_torch.scene.bvh import LEAF_ROWS
-    ref, visited = cp.row_chase_plain(records, max(cp.CHAINS), hops,
+    ref, visited = cp.row_chase_plain(table, max(cp.CHAINS), hops,
                                       visited=True)
-    plain_ms = time_cuda(lambda: cp.row_chase_plain(records, 1, hops), 1,
-                         run_ahead=False)
+    plain = (time_cuda(lambda: cp.row_chase_plain(table, 1, hops), 1,
+                       run_ahead=False) if plain_ms else None)
     out = []
     for chains in cp.CHAINS:
-        got = cp.row_chase(records, chains, hops)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref[:chains]):
-            raise AssertionError(f"sp_row_chase at {chains} chains gives "
-                                 f"{got.tolist()}, its plain version "
-                                 f"{ref[:chains].tolist()}")
-        ms = time_cuda(lambda: cp.row_chase(records, chains, hops), 5)
+        launch = {feed: (lambda f=feed: cp.row_chase(table, chains, hops, feed=f))
+                  for feed in cp.FEEDS}
+        for feed in cp.FEEDS:
+            got = launch[feed]()
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref[:chains]):
+                raise AssertionError(
+                    f"sp_row_chase ({feed}) at {chains} chains on the {name} "
+                    f"table gives {got.tolist()}, its plain version "
+                    f"{ref[:chains].tolist()}")
+        times = {feed: [] for feed in cp.FEEDS}
+        for feed in turns:
+            times[feed].append(time_cold(launch[feed], 3, flush) if flush is not None
+                               else time_cuda(launch[feed], 5))
         rows = int(torch.unique(visited[:, :chains]).numel())
         bytes_ms = (rows * LEAF_ROWS * 512 + 4 * chains) / HBM_BYTES_PER_S * 1e3
         ops_ms = hops * chains / FP32_FLOPS * 1e3
-        out.append(dict(kernel="row_chase", chains=chains, hops=hops,
-                        refs=got.tolist(), distinct_rows=rows, kernel_ms=ms,
-                        ns_per_hop=ms * 1e6 / hops,
-                        ns_per_hop_per_chain=ms * 1e6 / (hops * chains),
-                        plain_ms=plain_ms if chains == 1 else None,
-                        bound_ms=max(bytes_ms, ops_ms),
-                        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                        max_abs_err=0.0))
+        for feed in cp.FEEDS:
+            ms = min(times[feed], default=None)
+            out.append(dict(kernel="row_chase", feed=feed, table=name,
+                            table_bytes=table.numel() * 4, cold=flush is not None,
+                            chains=chains, hops=hops, refs=ref[:chains].tolist(),
+                            distinct_rows=rows, kernel_ms=ms,
+                            kernel_ms_turns=times[feed],
+                            ns_per_hop=None if ms is None else ms * 1e6 / hops,
+                            ns_per_hop_per_chain=(None if ms is None else
+                                                  ms * 1e6 / (hops * chains)),
+                            plain_ms=plain if chains == 1 else None,
+                            bound_ms=max(bytes_ms, ops_ms),
+                            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                            max_abs_err=0.0))
     return out
+
+
+def time_cold(fn, reps: int, flush) -> float:
+    """Milliseconds per call of ``fn``, each call timed alone right after
+    ``flush`` is zeroed (CUDA events around the call only; the zeroing
+    keeps the card busy while the host queues the call)."""
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def probe_chase(records, hops: int = PROBE_HOPS) -> list:
+    """sp_row_chase under both feeds at each chain count: on the bench's
+    table (the left spine, cached) refs equal to the plain version's and
+    each feed timed once; on cuda_probes.cycle_table's L2-sized table at
+    CYCLE_CHECK_HOPS (it wraps and ends mid-lap, so every hop's row differs
+    from the last and no chain ends at its start) refs equal, untimed.  The
+    feeds in turns and the tables past L2 are tools/torch_prof_dma_chains.py's."""
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    cycle = cp.cycle_table(CYCLE_CHECK_ROWS, device=records.device)
+    checked = chase_readings(cycle, f"cycle_{CYCLE_CHECK_ROWS}",
+                             CYCLE_CHECK_HOPS, turns=())
+    ends = checked[-1]["refs"]
+    if any(ref == 1 + c for c, ref in enumerate(ends)):
+        raise AssertionError(f"the cycle table's chains end at {ends}: a "
+                             "chain back at its start checks no hop")
+    return chase_readings(records, "bench", hops, turns=cp.FEEDS,
+                          plain_ms=True) + checked
 
 
 def body_ops(mode: str) -> int:
@@ -2297,19 +2362,25 @@ TOPOLOGY_TURNS = (("w8_k12", "frame"), ("w16_k12", "full"), ("w8_k24", "full"),
 TOPOLOGY_TIMEOUT_S = 400
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's mangled name as the kernel and its template arguments,
+    ``traverse_kernel<0,1>``."""
+    k = re.search(r"\d+([a-z_]+_kernel)I(\w*?)EEv", mangled)
+    return f"{k.group(1)}<{','.join(re.findall(r'L[bi](\d+)E', k.group(2)))}>"
+
+
 def ptxas_summary(lines: list) -> dict:
     """What ``nvcc -Xptxas -v`` says of each kernel of the library, keyed
     by the kernel and its template arguments (``traverse_kernel<0,0>`` is
     sp_closest, ``<1,0>`` sp_anyhit, ``<0,1>`` sp_closest_count; the
-    probes' ``row_chase_kernel<C>`` and ``visit_body_kernel<mode,check>``):
-    registers, spill stores and loads, stack frame and shared memory, in
-    bytes."""
+    probes' ``row_chase_kernel<C,feed>`` and
+    ``visit_body_kernel<mode,check>``): registers, spill stores and loads,
+    stack frame and shared memory, in bytes."""
     out, name = {}, None
     for line in lines:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)I(\w*?)EEv", m.group(1))
-            name = f"{k.group(1)}<{','.join(re.findall(r'L[bi](\d+)E', k.group(2)))}>"
+            name = kernel_name(m.group(1))
             out[name] = {}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -2555,16 +2626,27 @@ COUNT_KEEP = ("case", "n", "kernel_ms", "closest_ms_in_turns", "counting_cost",
               "visits_per_warp_mean", "lock_step_share", "n_push_shares")
 
 
+CHASE_KEEP = ("feed", "table", "chains", "hops", "kernel_ms", "ns_per_hop",
+              "distinct_rows", "bound_ms")
+
+
+def chase_entry(name: str, feed: str, chase: list, launches: dict) -> dict:
+    """sp_row_chase under one feed: times from one chain on the bench's
+    table, where the plain version is timed too."""
+    cases = [c for c in chase if c["feed"] == feed]
+    one = next(c for c in cases if c["chains"] == 1 and c["table"] == "bench")
+    return {**probe_entry(name, {**one, "ms": one["kernel_ms"]}, cases,
+                          launches, CHASE_KEEP), "feed": feed}
+
+
 def probe_entries(probes: dict, launches: dict) -> list:
     counts, chase = probes["closest_count"], probes["row_chase"]
     main = next(c for c in counts if c["case"] == "primary")
-    one = next(c for c in chase if c["chains"] == 1)
     return [
         probe_entry("closest_count", {**main, "ms": main["kernel_ms"]}, counts,
                     launches, COUNT_KEEP),
-        probe_entry("row_chase", {**one, "ms": one["kernel_ms"]}, chase,
-                    launches, ("chains", "hops", "kernel_ms", "ns_per_hop",
-                               "distinct_rows", "bound_ms")),
+        chase_entry("row_chase_bulk", "bulk", chase, launches),
+        chase_entry("row_chase_ldg", "ldg", chase, launches),
         visit_body_entry("visit_body", probes["visit_body"], launches),
     ]
 
@@ -2578,8 +2660,9 @@ def kernels_line(results: dict, launches: dict, by_path: dict,
     launches from lucy's 1-spp frame) and at every other topology the
     topology phase drove (``closest_w16_k12``, ..., launches from that
     topology's frame); the three measuring kernels (``closest_count``,
-    ``row_chase``, ``visit_body``, and the visit body at the topologies
-    whose job timed it, ``visit_body_w16_k12``, ...)."""
+    ``row_chase_bulk`` / ``row_chase_ldg``, ``visit_body``, and the visit
+    body at the topologies whose job timed it, ``visit_body_w16_k12``,
+    ...)."""
     from simplepath_tpu_torch.scene.bvh import LEAF_SIZE, WIDTH
     entries = []
     if results:

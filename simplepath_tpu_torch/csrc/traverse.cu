@@ -510,54 +510,176 @@ int launch(const void* records, const void* ro, const void* rd,
 //
 // sp_row_chase <- tools/prof_visits.py::dma_chase (one chain) and
 // tools/prof_dma_chains.py::chase (C interleaved chains).  A serial pointer
-// chase over the table: each hop copies the LEAF_ROWS rows of row |ref| - 1,
-// reads slot 6W of the copy (an internal row's first child ref) and
-// follows it, or restarts chain c at row 1 + c (ref 1 + c) where the ref is
-// not positive; after `hops` hops it gives each chain's ref.  The TPU kernel
-// DMAs the row from HBM into SMEM; here one warp copies it into shared
-// memory, 16 B a lane, through the read-only cache the traversal reads rows
-// through, and issues every chain's copy of a step before it waits on any.
-// What bounds it: the latency of one dependent row load (a ref is known only
-// when the row that holds it has landed); the few distinct rows a chase
-// cycles through stay in L1/L2, so it reads the latency of a cached row, as
-// a traversal's top rows are.  Bytes and operations are far below it.
-// A ref outside the table is clamped to its last full row (the TPU kernel
-// would read past the table).
-template <int C>
+// chase over the table: each hop copies the LEAF_ROWS rows of row |ref| - 1
+// into shared memory, reads slot 6W of the copy (an internal row's first
+// child ref) and follows it, or restarts chain c at row 1 + c (ref 1 + c)
+// where the ref is not positive; after `hops` hops it gives each chain's
+// ref.  A ref outside the table is clamped to its last full row (the TPU
+// kernel would read past the table).  One warp a launch, every chain's copy
+// of a hop issued before any is waited on, as `chase` starts all C DMAs.
+// Two feeds, one template (ChaseFeed), the same function:
+//   FEED_BULK  the TPU kernel's structure on Hopper: its asynchronous row
+//              DMA (pltpu.make_async_copy) and DMA semaphore become one
+//              bulk copy by the TMA unit (cp.async.bulk, LEAF_ROWS x 512 B)
+//              that completes on an mbarrier; 2C buffers and 2C barriers
+//              in shared memory, as the TPU kernel keeps 2C SMEM buffers
+//              and 2C semaphores.  Lane 0 issues; every lane waits.  The
+//              copy goes through L2 and skips L1.
+//   FEED_LDG   the traversal's own row feed: the 32 lanes __ldg the rows
+//              through L1, 16 B a lane, into registers, then st.shared.
+// What bounds it: the latency of one dependent row copy (a ref is known only
+// when the row that holds it has landed); bytes and operations are far
+// below it.  So the table sets the reading: over the bench's table the
+// chase cycles through the left spine's few rows, which stay in L1 (and
+// L2), the latency of a cached row; over cuda_probes.cycle_table, whose
+// slot 6W makes one random cycle of every row, each hop copies a row no
+// earlier hop of the chain copied, so a table past the 50 MB L2 reads what
+// the TPU probe reads: a dependent row copy from device memory (HBM).
+enum ChaseFeed { FEED_BULK = 0, FEED_LDG = 1 };
+
+constexpr unsigned CHASE_BYTES = LEAF_ROWS * ROW * 4;   // one copy: LEAF_ROWS x 512 B
+static_assert(CHASE_BYTES % 16 == 0, "a bulk copy moves a multiple of 16 B");
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// the barrier's current phase completes when this arrival and `bytes` of
+// transactions have landed
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar,
+                                                      unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// spins until the barrier's phase of this parity has completed; a phase
+// that never completes (a byte count or parity gone wrong) traps after
+// MBAR_TRIES tries, seconds, so that the launch fails instead of hanging
+constexpr unsigned MBAR_TRIES = 1u << 26;
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+    unsigned done = 0;
+    for (unsigned tries = 0; !done; ++tries) {
+        if (tries == MBAR_TRIES) __trap();
+        asm volatile("{\n\t.reg .pred p;\n\t"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                     "selp.u32 %0, 1, 0, p;\n\t}"
+                     : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    }
+}
+
+// one bulk copy global -> shared by the TMA unit, completing on `bar`
+// (16-B aligned source and destination, a multiple of 16 B)
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
+                                              unsigned bytes,
+                                              unsigned long long* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+                 " [%0], [%1], %2, [%3];"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+                 : "memory");
+}
+
+// orders this thread's generic-proxy accesses to shared memory before later
+// async-proxy ones (the next bulk copy into a buffer the lanes have read)
+__device__ __forceinline__ void fence_proxy_async_smem() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ int chase_row(float ref, int n_rows) {
+    return max(0, min((int)fabsf(ref) - 1, n_rows - LEAF_ROWS));
+}
+
+template <int C, int FEED>
 __global__ void __launch_bounds__(32)
 row_chase_kernel(const float* __restrict__ records, int n_rows, int hops,
                  float* __restrict__ out_ref) {
-    constexpr int V = LEAF_ROWS * ROW / 4;     // float4 a copy: 32 a row
-    __shared__ float4 copies[C][V];
     const int lane = threadIdx.x;
     float ref[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) ref[c] = 1.0f + c;
-    for (int h = 0; h < hops; ++h) {
-        float4 v[C][LEAF_ROWS];
+    if constexpr (FEED == FEED_BULK) {
+        // buffer 2c + p and barrier 2c + p: chain c at hops of parity p
+        __shared__ __align__(128) float copies[2 * C][LEAF_ROWS * ROW];
+        __shared__ __align__(8) unsigned long long bars[2 * C];
+        if (lane == 0) {
 #pragma unroll
-        for (int c = 0; c < C; ++c) {          // every chain's copy in flight
-            const int row = max(0, min((int)fabsf(ref[c]) - 1, n_rows - LEAF_ROWS));
-            const float4* src = (const float4*)(records + (size_t)row * ROW);
-#pragma unroll
-            for (int q = 0; q < LEAF_ROWS; ++q) v[c][q] = __ldg(src + q * 32 + lane);
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-#pragma unroll
-            for (int q = 0; q < LEAF_ROWS; ++q) copies[c][q * 32 + lane] = v[c][q];
+            for (int b = 0; b < 2 * C; ++b) mbar_init(&bars[b], 1);
+            asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+            fence_proxy_async_smem();
         }
         __syncwarp();
+        for (int h = 0; h < hops; ++h) {
+            const int p = h & 1;
+            if (lane == 0) {                   // every chain's copy in flight
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-            const float child = ((const float*)copies[c])[6 * W];
-            ref[c] = child > 0.0f ? child : 1.0f + c;
+                for (int c = 0; c < C; ++c) {
+                    unsigned long long* bar = &bars[2 * c + p];
+                    mbar_arrive_expect_tx(bar, CHASE_BYTES);
+                    bulk_copy_g2s(copies[2 * c + p],
+                                  records + (size_t)chase_row(ref[c], n_rows) * ROW,
+                                  CHASE_BYTES, bar);
+                }
+            }
+            // the (h >> 1)-th use of each barrier of parity p: its phase
+            // of that parity
+            const unsigned phase = (unsigned)(h >> 1) & 1u;
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                mbar_wait(&bars[2 * c + p], phase);
+                const float child = copies[2 * c + p][6 * W];
+                ref[c] = child > 0.0f ? child : 1.0f + c;
+            }
+            // the reads above before the bulk copy that refills these
+            // buffers two hops on (a write after a read across proxies)
+            fence_proxy_async_smem();
+            __syncwarp();
         }
-        __syncwarp();                          // before the next copies land
+    } else {
+        constexpr int V = LEAF_ROWS * ROW / 4;     // float4 a copy: 32 a row
+        __shared__ float4 copies[C][V];
+        for (int h = 0; h < hops; ++h) {
+            float4 v[C][LEAF_ROWS];
+#pragma unroll
+            for (int c = 0; c < C; ++c) {          // every chain's copy in flight
+                const float4* src =
+                    (const float4*)(records + (size_t)chase_row(ref[c], n_rows) * ROW);
+#pragma unroll
+                for (int q = 0; q < LEAF_ROWS; ++q) v[c][q] = __ldg(src + q * 32 + lane);
+            }
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+#pragma unroll
+                for (int q = 0; q < LEAF_ROWS; ++q) copies[c][q * 32 + lane] = v[c][q];
+            }
+            __syncwarp();
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                const float child = ((const float*)copies[c])[6 * W];
+                ref[c] = child > 0.0f ? child : 1.0f + c;
+            }
+            __syncwarp();                          // before the next copies land
+        }
     }
 #pragma unroll
     for (int c = 0; c < C; ++c)
         if (lane == c) out_ref[c] = ref[c];
+}
+
+template <int C>
+int launch_chase(const float* records, int n_rows, int hops, int feed,
+                 float* out, cudaStream_t s) {
+    if (feed == FEED_BULK)
+        row_chase_kernel<C, FEED_BULK><<<1, 32, 0, s>>>(records, n_rows, hops, out);
+    else if (feed == FEED_LDG)
+        row_chase_kernel<C, FEED_LDG><<<1, 32, 0, s>>>(records, n_rows, hops, out);
+    else
+        return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
 }
 
 // sp_visit_body <- tools/prof_visit_vpu.py::make_kernel.  `bodies`
@@ -754,20 +876,20 @@ extern "C" int sp_closest_count(const void* records, const void* ro,
                                out_internal, out_leaf, out_npush, stream);
 }
 
-// chains: 1, 2, 4 or 8 (others return cudaErrorInvalidValue); out_ref f32[chains]
+// chains: 1, 2, 4 or 8; feed: ChaseFeed (others of either return
+// cudaErrorInvalidValue); out_ref f32[chains]
 extern "C" int sp_row_chase(const void* records, int n_rows, int chains,
-                            int hops, void* out_ref, void* stream) {
+                            int hops, int feed, void* out_ref, void* stream) {
     const float* rec = (const float*)records;
     float* out = (float*)out_ref;
     cudaStream_t s = (cudaStream_t)stream;
     switch (chains) {
-        case 1: row_chase_kernel<1><<<1, 32, 0, s>>>(rec, n_rows, hops, out); break;
-        case 2: row_chase_kernel<2><<<1, 32, 0, s>>>(rec, n_rows, hops, out); break;
-        case 4: row_chase_kernel<4><<<1, 32, 0, s>>>(rec, n_rows, hops, out); break;
-        case 8: row_chase_kernel<8><<<1, 32, 0, s>>>(rec, n_rows, hops, out); break;
+        case 1: return launch_chase<1>(rec, n_rows, hops, feed, out, s);
+        case 2: return launch_chase<2>(rec, n_rows, hops, feed, out, s);
+        case 4: return launch_chase<4>(rec, n_rows, hops, feed, out, s);
+        case 8: return launch_chase<8>(rec, n_rows, hops, feed, out, s);
         default: return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaGetLastError();
 }
 
 // mode: BodyMode; n rays, out f32[n]; lanes f32[n, G, 4] for a check

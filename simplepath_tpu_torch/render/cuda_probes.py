@@ -7,7 +7,10 @@ package's ``tools/`` probes, each wrapper with its plain PyTorch version.
   n_push, the number of hit children (0, 1, 2, >= 3);
 * :func:`row_chase` ← ``tools/prof_visits.py::dma_chase`` and
   ``tools/prof_dma_chains.py::chase``: C serial pointer chases over the
-  record table, one row copy a hop;
+  record table, one row copy a hop, fed by a TMA bulk copy on an mbarrier
+  (the TPU's row DMA on a semaphore) or by ``__ldg`` (the traversal's feed)
+  (:data:`FEEDS`); :func:`cycle_table` is its input that the caches cannot
+  hold;
 * :func:`visit_body` ← ``tools/prof_visit_vpu.py::make_kernel``: M
   back-to-back visit bodies on rows held in shared memory, for one fixed
   ray, in four modes (:data:`BODY_MODES`); :func:`visit_body_lanes` is its
@@ -37,20 +40,27 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ..device import resolve_device
 from ..scene.bvh import LEAF_ROWS, LEAF_SIZE, RECORD_WIDTH, WIDTH
 from . import cuda_traverse as ct
 
 __all__ = ["closest_count", "closest_count_plain", "row_chase",
            "row_chase_plain", "visit_body", "visit_body_plain",
            "visit_body_lanes", "visit_body_lanes_plain", "crossed_table",
-           "body_blocks_per_sm", "closest_blocks_per_sm", "launch_counts",
-           "reset_launch_counts", "BODY_MODES", "CHAINS"]
+           "cycle_table", "body_blocks_per_sm", "closest_blocks_per_sm",
+           "launch_counts", "reset_launch_counts", "BODY_MODES", "CHAINS",
+           "FEEDS"]
 
 # the visit-body probe's modes, in the kernel's numbering (csrc/traverse.cu
 # BodyMode)
 BODY_MODES = ("internal", "internal_norel", "sort_only", "leaf")
 # chains one warp runs in sp_row_chase
 CHAINS = (1, 2, 4, 8)
+# sp_row_chase's row feeds, in the kernel's numbering (csrc/traverse.cu
+# ChaseFeed): a TMA bulk copy on an mbarrier, or __ldg through L1
+FEEDS = ("bulk", "ldg")
+# refs are float32: every integer up to 2**24 is exact
+MAX_CYCLE_ROWS = 2 ** 24
 
 # launches per kernel: +1 exactly where a wrapper launches its kernel
 launch_counts = {"closest_count": 0, "row_chase": 0, "visit_body": 0}
@@ -72,7 +82,7 @@ def _library():
         lib.sp_closest_count.restype = i
         lib.sp_closest_count.argtypes = [p, p, p, p, p, i] + [p] * 9
         lib.sp_row_chase.restype = i
-        lib.sp_row_chase.argtypes = [p, i, i, i, p, p]
+        lib.sp_row_chase.argtypes = [p, i, i, i, i, p, p]
         lib.sp_visit_body.restype = i
         lib.sp_visit_body.argtypes = [p, i, f, i, i, i, p, p, p]
         lib.sp_visit_body_blocks_per_sm.restype = i
@@ -154,8 +164,10 @@ def closest_count_plain(records: Tensor, ro: Tensor, rd: Tensor,
 
 # ------------------------------------------------------------- row chase
 
-def _check_chase(records: Tensor, chains: int, hops: int) -> None:
+def _check_chase(records: Tensor, chains: int, hops: int, feed: str) -> None:
     _check_records(records)
+    if feed not in FEEDS:
+        raise ValueError(f"feed must be one of {FEEDS}, got {feed!r}")
     if chains not in CHAINS:
         raise ValueError(f"chains must be one of {CHAINS}, got {chains}")
     if hops < 0:
@@ -165,14 +177,21 @@ def _check_chase(records: Tensor, chains: int, hops: int) -> None:
                          f"one copy's {LEAF_ROWS}")
 
 
-def row_chase(records: Tensor, chains: int, hops: int) -> Tensor:
+def row_chase(records: Tensor, chains: int, hops: int,
+              feed: str = "bulk") -> Tensor:
     """``chains`` serial pointer chases of ``hops`` hops each over the
     record table, one warp: chain c starts at ref 1 + c; a hop copies the
     LEAF_ROWS rows of row |ref| - 1 and takes slot 6W of the copy (an
     internal row's first child ref) if it is positive, else ref 1 + c.
     Returns each chain's last ref, float32[chains] (the TPU probe returns
-    chain 0's).  A ref outside the table reads its last full row."""
-    _check_chase(records, chains, hops)
+    chain 0's).  A ref outside the table reads its last full row.
+
+    ``feed`` picks how a hop's rows reach shared memory (one instance of
+    the kernel each, the same refs): ``"bulk"``, one TMA bulk copy that
+    completes on an mbarrier (the TPU's row DMA on a semaphore), or
+    ``"ldg"``, the lanes' loads through L1 (the traversal's feed).  On a
+    CUDA tensor either feed launches its own kernel or raises."""
+    _check_chase(records, chains, hops, feed)
     records = records.detach()
     if not _on_kernel(records):
         return row_chase_plain(records, chains, hops)
@@ -182,7 +201,8 @@ def row_chase(records: Tensor, chains: int, hops: int) -> Tensor:
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.sp_row_chase(records.data_ptr(), records.shape[0], chains,
-                               hops, out.data_ptr(), _stream(dev))
+                               hops, FEEDS.index(feed), out.data_ptr(),
+                               _stream(dev))
     launch_counts["row_chase"] += 1
     ct._raise_on(err, "sp_row_chase")
     return out
@@ -351,6 +371,29 @@ def crossed_table(tie: bool = True, seed: int = 4, device=None) -> Tensor:
                            (v0 - v2).T.reshape(-1), [0.0, 0.0, 5.0]])
     table[1:].reshape(-1)[:leaf.size] = leaf
     return torch.from_numpy(table).to(device)
+
+
+def cycle_table(rows: int, seed: int = 0, device=None) -> Tensor:
+    """A record table of ``rows`` rows that the row chase walks as one
+    cycle: f32[rows, RECORD_WIDTH] of zeros but slot 6W, which makes one
+    random cyclic order of rows 0 .. rows - LEAF_ROWS (numpy's
+    ``default_rng(seed)``; no copy is clamped) by holding in each row the
+    ref (row + 1, an exact float32 integer) of the next row in the order.
+    Each hop copies a row that no earlier hop of its chain copied, until
+    the cycle wraps, so the table's size sets the level of the card's
+    memory that serves a hop.  Built on ``device`` (None: CUDA, raising
+    without one) with only the ref column from the host."""
+    dev = resolve_device(device)
+    if not LEAF_ROWS <= rows <= MAX_CYCLE_ROWS:
+        raise ValueError(f"a cycle table has {LEAF_ROWS} to {MAX_CYCLE_ROWS} "
+                         f"rows (refs exact in float32), got {rows}")
+    n = rows - LEAF_ROWS + 1
+    order = np.random.default_rng(seed).permutation(n)
+    ref = np.empty(n, np.float32)
+    ref[order] = np.roll(order, -1) + 1
+    table = torch.zeros((rows, RECORD_WIDTH), dtype=torch.float32, device=dev)
+    table[:n, 6 * WIDTH] = torch.from_numpy(ref).to(dev)
+    return table
 
 
 def _body_ray(seed: float, n: int, device):

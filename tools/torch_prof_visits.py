@@ -12,7 +12,10 @@ visits a ray (mean, max), the visits a warp (the most of its 32 / W rays:
 a warp runs as long as its slowest ray) and the lock-step share, where the
 TPU tool printed visits a 1,024-ray packet; then sp_closest's device time
 over the visits (ns a visit, ns a warp step), and a serial chase of 20,000
-row copies (sp_row_chase, one chain): ns a hop.  Times are CUDA events with
+row copies (sp_row_chase, one chain, under each feed in turns: a TMA bulk
+copy, the TPU probe's DMA; __ldg, the traversal's loads): ns a hop.  The
+bench's chase cycles through cached rows; tools/torch_prof_dma_chains.py
+reads it from HBM too.  Times are CUDA events with
 the card spinning first (chip_smoke.time_cuda).  Needs one CUDA device;
 imports nothing of JAX.
 """
@@ -65,10 +68,11 @@ def main() -> int:
     if count_only:
         return 0
     hops = cs.PROBE_HOPS
-    cp.row_chase(rec, 1, hops)
-    ms = cs.time_cuda(lambda: cp.row_chase(rec, 1, hops), 5)
-    print(f"row chase: {ms * 1e6 / hops:.1f} ns/hop ({hops} serial "
-          f"{LEAF_ROWS * 512}B row copies in {ms:.3f} ms)")
+    for feed in cp.FEEDS + cp.FEEDS[::-1]:          # the feeds in turns
+        cp.row_chase(rec, 1, hops, feed=feed)
+        ms = cs.time_cuda(lambda: cp.row_chase(rec, 1, hops, feed=feed), 5)
+        print(f"row chase ({feed}): {ms * 1e6 / hops:.1f} ns/hop ({hops} "
+              f"serial {LEAF_ROWS * 512}B row copies in {ms:.3f} ms)")
     return 0
 
 
