@@ -11,7 +11,8 @@ the two hand-written CUDA traversal kernels, and holds each kernel against
 its plain PyTorch version on the card.  Phases, JSON lines:
 
   device   card name and power limit (nvidia-smi), torch and CUDA versions
-  build    nvcc build of csrc/traverse.cu and g++ build of the BVH builder
+  build    nvcc build of csrc/traverse.cu (ptxas's registers and spills of
+           every kernel; a spill fails it) and g++ build of the BVH builder
   kernels  closest/anyhit vs their plain versions at N=65,536 primary rays,
            N=65,499 seeded incoherent rays (~10 % dead lanes) and the real
            wavefronts of bounces 0, 2 and 5 of one rendered 65,536-ray chunk:
@@ -29,21 +30,28 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            mbarrier; __ldg) at 1, 2, 4 and 8 chains of 20,000 hops on the
            bench's table (refs equal, ns a hop, each feed timed once) and
            of 5,461 on a 2 MiB cuda_probes.cycle_table (refs equal, every
-           chain away from its start); sp_visit_body in its
-           four modes on the bench's table and on two tables whose rows the
-           fixed ray crosses (output and each lane's keys, refs and slots
-           after 1 and 3 bodies NaN-equal; ns a body at 100,000 bodies on
-           one warp, on a launch that fills every SM and at sp_closest's
-           occupancy)
+           chain away from its start); sp_visit_body in both layouts
+           (one thread a ray, the default; the traversal's W lanes a ray)
+           and its four modes on the bench's table and on three tables
+           whose rows the fixed ray crosses (one with a tie, one with a tie
+           and a missed child), on one warp, on a launch that fills
+           every SM and at sp_closest's occupancy (output and each lane's
+           keys, refs and slots after 1 and 3 bodies NaN-equal); each
+           layout timed on the bench's full wave of the internal mode at
+           100,000 and 1,000 bodies, the plain version at 1,000 (the
+           turns and the other cases: tools/torch_prof_visit_vpu.py)
   render   the flagship (iterative_rrnee) full frame at --spp samples;
            launch counts per kernel
-  paths    the full frame at 1 spp with each other traced integrator, and
-           with an image-based environment light (a 1024x2048 PFM written
-           from a seed) under iterative_rrnee and direct_lighting; launch
+  paths    the frame at 512x512 (the bench's camera, 4 chunks) and 1 spp
+           with each other traced integrator, and with an image-based
+           environment light (a 1024x2048 PFM written from a seed) under
+           iterative_rrnee and direct_lighting; launch
            counts per kernel and path (sp_anyhit exactly where there is NEE)
   parity   128x128, 1 spp: kernels vs plain versions forced, on the card,
-           for the flagship and every path above; adaptive RR at 64x64,
-           20 spp; Mandelbrot at 256x256 with no kernel launch
+           for the flagship and every path above (those at 3 bounces); adaptive RR at 64x64,
+           20 spp, 3 bounces (RR acting: buckets at their samples counted
+           from the same renders); Mandelbrot at 256x256 with no kernel
+           launch
   cli      simplepath_tpu_torch.cli on tests/scenes/g_ibl_rrnee.sp, 8 spp
            in passes of 4 with a checkpoint; a render cut after its first
            pass and resumed by the CLI equals the uninterrupted one bit for
@@ -68,7 +76,8 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            memory a step, one step at 4 spp; one step over every leaf and
            over each group of leaves alone; a step's forward,
            checkpointed and plain-autograd cost, and what a sample-level
-           checkpoint would save; on a 64x64 crop the gradient through the
+           checkpoint would save; on a 64x64 crop, its paths cut at 3
+           bounces, the gradient through the
            kernels equals the one through their plain versions (rtol 1e-4,
            atol 1e-6), and matches central differences (4 spp) on the
            largest albedo and light-radiance gradients (and, recorded, on
@@ -85,7 +94,7 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            the flagship full frame at 1 spp through one BVH, then through
            the forest (A B), the forest's frame against the
            one-BVH frame (max abs diff < 1e-4), its launches and peak memory;
-           the forest's kernels vs plain versions at 128x128
+           the forest's kernels vs plain versions at 128x128, 3 bounces
   lucy     the lucy-class stress scene at its full size: scenes/lucy_bench.sp
            (1350x2000, depth 10) over a 28,895,202-triangle terrain
            (io/meshgen.displaced_grid(3802), written by
@@ -99,14 +108,17 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            the bench's readings; sp_closest_count on its primary and
            incoherent rays (counts equal to the plain version's); the full
            frame at 1 spp (42 chunks, the last padded); a 128x128 render
-           through the kernels bit-equal to the plain-version render; the
-           full frame through a forest of 4, built once without the cache
-           (the geom phase holds its cache path), held to the
-           one-BVH frame at the lucy gate (< 1 % of pixels off by > 1e-3,
-           means within 1 %); each step's seconds
+           at 3 bounces through the kernels bit-equal to the plain-version
+           render; a
+           forest of 4, built once without the cache (the geom phase holds
+           its cache path), its 256x256 frame (lucy's camera, one chunk)
+           held to the one-BVH frame of the same size at the lucy gate
+           (< 1 % of pixels off by > 1e-3, means within 1 %); each step's
+           seconds
   ranks    two processes on the one card, joined over gloo (NCCL takes one
            GPU a rank; gloo stages the CUDA tensors of a collective through
-           the host): the bench frame at 1 spp by render_image_multihost,
+           the host): the bench frame at 512x512 (4 chunks) and 1 spp by
+           render_image_multihost,
            each rank's frame equal to the one-process frame (timed after the
            same warm-up, in this process after the ranks, and in
            a fresh process as a world of one), launches per rank; two
@@ -126,19 +138,21 @@ its plain PyTorch version on the card.  Phases, JSON lines:
            (SIMPLEPATH_BVH_WIDTH=16; SIMPLEPATH_BVH_LEAF=24; and, checked
            without the visit body or the frame in turns, the leaf layouts
            (W, K) = (8, 5), (8, 29), (16, 29)), each in a fresh process,
-           since the knobs are read at import, one at a time on the card
-           while the next one starts up: the bench loaded
+           since the knobs are read at import, all started together and
+           one at a time on the card: the bench loaded
            and that topology's library built, registers and spills of every
            kernel in it from ptxas; both kernels against their
            plain versions on the kernels phase's five ray sets (times, rows
-           visited, the bound from W and K); a 128x128 flagship render
-           through the kernels bit-equal to the plain-version render; the
-           1024x1024 flagship frame at 1 spp under the render phase's key
-           within max abs diff 1e-4 of the default topology's frame, its
+           visited, the bound from W and K); a 128x128 flagship render at 3
+           bounces through the kernels bit-equal to the plain-version render;
+           the
+           flagship frame at 256x256 (the bench's camera, one chunk) and
+           1 spp under the render phase's key within max abs diff 1e-4 of
+           the default topology's frame, its
            seconds timed in turns with the default topology's (processes in
            the order default, W=16, K=24, default) and its
-           launches of each kernel; the visit-body probe's four modes at W=16
-           and K=24 (the probes phase's readings)
+           launches of each kernel; the visit-body probe's layouts and
+           modes at W=16 and K=24 (the probes phase's checks and readings)
 
 Each phase's seconds follow it on a line of their own, with what the host
 took to enqueue one tiny kernel, and the live Python objects, just before
@@ -179,6 +193,19 @@ PATHS = {"direct_lighting": True, "brute_force": False,
          "brute_force_iterative_dynamic_rr": False, "whitted": True}
 IBL_PATHS = {"iterative_rrnee": True, "direct_lighting": True}
 IBL_SHAPE = (1024, 2048)
+# Cuts of depth that keep every path, topology and kernel driven and held
+# against its plain version: the other integrators' and the IBL's frames at
+# PATHS_SIDE^2 (4 chunks, not the bench's 16); the topology phase's frames,
+# the ranks' frame and lucy's forest gate at one chunk's SIDE^2 or
+# PATHS_SIDE^2; the parity renders but the flagship's, the adaptive-RR
+# parity and the train phase's crop checks (gradient parity, finite
+# differences) at CHECK_DEPTH bounces, not 10 (each bounce costs the same
+# launches, whatever its pixels).
+PATHS_SIDE = 512
+TOPOLOGY_SIDE = 256
+RANKS_SIDE = 512
+LUCY_GATE_SIDE = 256
+CHECK_DEPTH = 3
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
 # float32 rate outside the tensor cores.
@@ -206,6 +233,11 @@ CYCLE_CHECK_HOPS = CYCLE_CHECK_ROWS + CYCLE_CHECK_ROWS // 3
 CHECK_BODIES = 3
 PLAIN_BODIES = 1_000
 BODY_SEED = 1.0             # rows 0 and 1, the TPU probe's first call
+# the visit body's case that the kernels line times: (table, mode, shape)
+MAIN_BODY_CASE = ("bench", "internal", "every_sm")
+# the most of its operation bound a visit body can read: the peak counts an
+# FMA as two operations, and the build (-fmad=false) issues each alone
+BODY_ISSUE_CEILING = 0.5
 
 
 def visit_costs() -> tuple:
@@ -438,10 +470,14 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    """csrc/traverse.cu built anew by nvcc, with what ptxas says of each
+    kernel (raises if one spills), and the BVH builder by g++."""
     from simplepath_tpu_torch import native
     from simplepath_tpu_torch.render import cuda_traverse as ct
     t0 = time.time()
-    lib = ct.build_library(verbose=True)
+    lib = ct.library_path()
+    ptxas = ptxas_summary(ct._compile_source(ct.KERNEL_SOURCE, lib,
+                                             verbose=True).splitlines())
     kernel_s = time.time() - t0
     t0 = time.time()
     have_native = native.get_lib() is not None
@@ -449,7 +485,8 @@ def phase_build() -> None:
     ct._library()  # load and bind; raises if the library does not load
     emit("build", kernel_library=os.path.relpath(lib, HERE),
          kernel_build_s=kernel_s, native_bvh_builder=have_native,
-         native_build_s=native_s)
+         native_build_s=native_s, ptxas=ptxas)
+    check_no_spills(ptxas, os.path.relpath(lib, HERE))
 
 
 def compare_case(kernel: str, case: str, records, rays) -> dict:
@@ -806,12 +843,16 @@ def body_tables(records) -> dict:
     """The tables the visit body runs on, each with its seed: the bench's at
     BODY_SEED (the fixed ray misses every row of the bench's table: each
     child of row 0, and row 1 read as a leaf), and cuda_probes.crossed_table
-    without and with a tie, whose rows the ray crosses."""
+    without and with a tie, whose rows the ray crosses, and with a tie and
+    a missed child (the network moves it, so a child's next limit must
+    carry its own key, not the one placed at its index)."""
     from simplepath_tpu_torch.render import cuda_probes as cp
     dev = records.device
     return {"bench": (records, BODY_SEED),
             "crossed": (cp.crossed_table(tie=False, device=dev), 1.0),
-            "crossed_tie": (cp.crossed_table(tie=True, device=dev), 1.0)}
+            "crossed_tie": (cp.crossed_table(tie=True, device=dev), 1.0),
+            "crossed_tie_miss": (cp.crossed_table(tie=True, miss=True,
+                                                  device=dev), 1.0)}
 
 
 def nan_equal(a, b) -> bool:
@@ -819,15 +860,17 @@ def nan_equal(a, b) -> bool:
     return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
 
 
-def check_visit_body(records, seed: float, mode: str, n: int, table: str) -> str:
-    """sp_visit_body's output, and its check launch's output and lanes (what
-    each lane holds after the last body: keys, refs, near / far, slots),
-    after 1 and CHECK_BODIES bodies, NaN-equal to the plain version's;
-    returns the output."""
+def check_visit_body(records, seed: float, mode: str, n: int, table: str,
+                     layout: str = "lane") -> str:
+    """sp_visit_body's ``layout``: its output, and its check launch's output
+    and lanes (what each lane holds after the last body: keys, refs, near /
+    far, slots), after 1 and CHECK_BODIES bodies, NaN-equal to the plain
+    version's; returns the output."""
     from simplepath_tpu_torch.render import cuda_probes as cp
     for bodies in (1, CHECK_BODIES):
-        out = cp.visit_body(records, seed, mode, bodies, n)
-        got, lanes = cp.visit_body_lanes(records, seed, mode, bodies, n)
+        out = cp.visit_body(records, seed, mode, bodies, n, layout)
+        got, lanes = cp.visit_body_lanes(records, seed, mode, bodies, n,
+                                         layout)
         torch.cuda.synchronize()
         ref, ref_lanes = cp.visit_body_lanes_plain(records, seed, mode,
                                                    bodies, n)
@@ -835,60 +878,86 @@ def check_visit_body(records, seed: float, mode: str, n: int, table: str) -> str
                            ("lanes", lanes, ref_lanes)):
             if not nan_equal(a, b):
                 raise AssertionError(
-                    f"sp_visit_body {mode} on the {table} table, {n} rays, "
-                    f"{bodies} bodies: its {what} {a[0].tolist()}, the plain "
-                    f"version's {b[0].tolist()}")
+                    f"sp_visit_body ({layout}) {mode} on the {table} table, "
+                    f"{n} rays, {bodies} bodies: its {what} {a[0].tolist()}, "
+                    f"the plain version's {b[0].tolist()}")
     return str(float(out[0]))
 
 
-def probe_visit_body(records, bodies: int = PROBE_BODIES) -> list:
-    """sp_visit_body in each mode on each of body_tables, checked against
-    its plain version (check_visit_body) in three launch shapes: one warp
-    (32 / W rays: the latency of a body), one full wave at the body's own
-    occupancy (the throughput of bodies) and one at sp_closest's occupancy
-    where the body's allows it.  ns a body at ``bodies`` on the bench's and
-    the tieless crossed table; the plain version timed on the bench's full
-    wave at PLAIN_BODIES."""
+def body_shapes(mode: str, layout: str, device) -> tuple:
+    """The visit body's launch shapes for ``mode`` and ``layout`` → (blocks
+    an SM holds, {shape: rays}): one warp (32 rays a lane a ray, 32 / W
+    W lanes a ray: the latency of a body), one full wave at the layout's own
+    occupancy (the throughput of bodies) and one with as many resident warps
+    an SM as sp_closest has (both take blocks of 128 threads), where the
+    body's occupancy allows as many."""
     from simplepath_tpu_torch.render import cuda_probes as cp
-    from simplepath_tpu_torch.render import cuda_traverse as ct
-    sms = torch.cuda.get_device_properties(records.device).multi_processor_count
-    rays_a_block = 128 // ct.LANES_PER_RAY
-    traversal_blocks = cp.closest_blocks_per_sm()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = cp.body_blocks_per_sm(mode, layout)
+    per_block = cp.body_rays_per_block(layout)
+    traversal = cp.closest_blocks_per_sm()
+    return blocks, {"one_warp": 32 * per_block // cp.BODY_BLOCK,
+                    "every_sm": sms * blocks * per_block,
+                    "traversal_occupancy": sms * min(blocks, traversal)
+                    * per_block}
+
+
+def body_times(records, seed: float, mode: str, n: int, layout: str,
+               bodies: int = PROBE_BODIES, reps: int = 3) -> dict:
+    """sp_visit_body's ``layout`` timed at ``bodies`` bodies on ``n`` rays:
+    ms a launch, ns a body, ns a ray-body, bodies a second, the operation
+    bound (bodies x rays x body_ops over the float32 peak) and its share;
+    an FMA counts as two operations in the peak, and -fmad=false issues
+    each operation alone, so BODY_ISSUE_CEILING of the bound is the most
+    any design reads."""
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    ms = time_cuda(lambda: cp.visit_body(records, seed, mode, bodies, n,
+                                         layout), reps)
+    bound = bodies * n * body_ops(mode) / FP32_FLOPS * 1e3
+    return dict(bodies=bodies, kernel_ms=ms, ns_per_body=ms * 1e6 / bodies,
+                ns_per_ray_body=ms * 1e6 / (bodies * n),
+                bodies_per_s=bodies * n / (ms * 1e-3),
+                ops_per_body=body_ops(mode), bound_ms=bound,
+                bound_by="operations", bound_share=bound / ms,
+                issue_ceiling=BODY_ISSUE_CEILING)
+
+
+def probe_visit_body(records) -> list:
+    """sp_visit_body in each layout and mode on each of body_tables, in
+    each launch shape (body_shapes), held against its plain version
+    (check_visit_body); each layout timed once, for the kernels line, on
+    the bench's full wave of ``internal`` (MAIN_BODY_CASE): at PROBE_BODIES,
+    and at PLAIN_BODIES beside the plain version on the same rays.  Every
+    other case's time, and the two layouts in turns, are
+    tools/torch_prof_visit_vpu.py's."""
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    traversal = cp.closest_blocks_per_sm()
     out = []
-    for table, (rec, seed) in body_tables(records).items():
-        for mode in cp.BODY_MODES:
-            blocks = cp.body_blocks_per_sm(mode)
-            shapes = {"one_warp": 32 // ct.LANES_PER_RAY,
-                      "every_sm": sms * blocks * rays_a_block,
-                      "traversal_occupancy": sms * rays_a_block
-                      * min(blocks, traversal_blocks)}
-            for shape, n in shapes.items():
-                output = check_visit_body(rec, seed, mode, n, table)
-                if table == "crossed_tie":      # checked only
-                    continue
-                ms = time_cuda(lambda: cp.visit_body(rec, seed, mode, bodies,
-                                                     n), 3)
-                res = dict(kernel="visit_body", table=table, mode=mode,
-                           shape=shape, rays=n, blocks_per_sm=blocks,
-                           closest_blocks_per_sm=traversal_blocks,
-                           bodies=bodies, output=output, kernel_ms=ms,
-                           ns_per_body=ms * 1e6 / bodies,
-                           ns_per_ray_body=ms * 1e6 / (bodies * n),
-                           bodies_per_s=bodies * n / (ms * 1e-3),
-                           ops_per_body=body_ops(mode),
-                           bound_ms=bodies * n * body_ops(mode) / FP32_FLOPS * 1e3,
-                           bound_by="operations", max_abs_err=0.0)
-                if table == "bench" and shape == "every_sm":
-                    res["kernel_ms_at_plain_bodies"] = time_cuda(
-                        lambda: cp.visit_body(rec, seed, mode, PLAIN_BODIES,
-                                              n), 5)
-                    res["plain_ms_at_plain_bodies"] = time_cuda(
-                        lambda: cp.visit_body_plain(rec, seed, mode,
-                                                    PLAIN_BODIES, n),
-                        1, run_ahead=False)
-                    res["bound_ms_at_plain_bodies"] = (
-                        res["bound_ms"] * PLAIN_BODIES / bodies)
-                out.append(res)
+    for layout in cp.BODY_LAYOUTS:
+        for table, (rec, seed) in body_tables(records).items():
+            for mode in cp.BODY_MODES:
+                blocks, shapes = body_shapes(mode, layout, records.device)
+                for shape, n in shapes.items():
+                    res = dict(kernel="visit_body", layout=layout,
+                               table=table, mode=mode, shape=shape, rays=n,
+                               blocks_per_sm=blocks,
+                               closest_blocks_per_sm=traversal,
+                               checked_bodies=[1, CHECK_BODIES],
+                               output=check_visit_body(rec, seed, mode, n,
+                                                       table, layout),
+                               max_abs_err=0.0)
+                    if (table, mode, shape) == MAIN_BODY_CASE:
+                        res.update(body_times(rec, seed, mode, n, layout))
+                        res["kernel_ms_at_plain_bodies"] = time_cuda(
+                            lambda: cp.visit_body(rec, seed, mode,
+                                                  PLAIN_BODIES, n, layout), 5)
+                        res["plain_ms_at_plain_bodies"] = time_cuda(
+                            lambda: cp.visit_body_plain(rec, seed, mode,
+                                                        PLAIN_BODIES, n),
+                            1, run_ahead=False)
+                        res["bound_ms_at_plain_bodies"] = (
+                            res["bound_ms"] * PLAIN_BODIES / PROBE_BODIES)
+                    out.append(res)
     return out
 
 
@@ -1005,6 +1074,12 @@ def ibl_bench_scene():
     return scene, time.time() - t0, shapes
 
 
+def with_depth(scene, depth: int):
+    """The scene with paths cut at ``depth`` bounces."""
+    return dataclasses.replace(
+        scene, static=dataclasses.replace(scene.static, max_depth=depth))
+
+
 def with_integrator(scene, name: str):
     return dataclasses.replace(
         scene, static=dataclasses.replace(scene.static, integrator=name))
@@ -1101,11 +1176,13 @@ def ibl_light_sample_launches(scene) -> int:
 
 
 def phase_paths(scene, ibl) -> dict:
-    """Every traced integrator besides the flagship on the bench frame, then
-    the bench with an image-based light under rrnee and direct lighting."""
+    """Every traced integrator besides the flagship on the bench frame at
+    PATHS_SIDE^2, then the bench with an image-based light under rrnee and
+    direct lighting."""
     by_path = {}
     for name, nee in PATHS.items():
-        res = render_path(name, with_integrator(scene, name))
+        res = render_path(name, shrink(with_integrator(scene, name),
+                                       PATHS_SIDE))
         check_launches(name, res["launches"], nee)
         emit("paths", **res)
         by_path[name] = res["launches"]
@@ -1113,7 +1190,8 @@ def phase_paths(scene, ibl) -> dict:
     per_sample = ibl_light_sample_launches(ibl_scene)
     for name, nee in IBL_PATHS.items():
         path = f"ibl_{name}"
-        res = render_path(path, with_integrator(ibl_scene, name))
+        res = render_path(path, shrink(with_integrator(ibl_scene, name),
+                                       PATHS_SIDE))
         check_launches(path, res["launches"], nee)
         emit("paths", **res, ibl_map=list(IBL_SHAPE), ibl_build_s=build_s,
              ibl_tables=shapes, ibl_launches_per_light_sample=per_sample)
@@ -1165,12 +1243,11 @@ def parity_case(path: str, scene, side: int = 128, spp: int = 1) -> dict:
     return res
 
 
-def dynamic_rr_buckets_filled(scene, side: int = 64, spp: int = 20) -> dict:
-    """Adaptive RR at side x side, spp samples: the integrator is wrapped
-    here to keep its statistics; how many (pixel, depth) buckets reached
-    RR_MIN_SAMPLES observations, i.e. where RR could fire."""
-    from simplepath_tpu_torch.core.rng import prng_key
-    from simplepath_tpu_torch.parallel.mesh import render_image_sharded
+def dynamic_rr_buckets_filled(render) -> dict:
+    """Adaptive RR's statistics through ``render()``: the integrator is
+    wrapped here to keep them; how many (pixel, depth) buckets the last
+    render left at RR_MIN_SAMPLES observations or more, i.e. where RR could
+    fire (raises if none did)."""
     from simplepath_tpu_torch.render import integrators as ti
 
     name = "brute_force_iterative_dynamic_rr"
@@ -1183,37 +1260,43 @@ def dynamic_rr_buckets_filled(scene, side: int = 64, spp: int = 20) -> dict:
 
     ti.INTEGRATOR_FNS[name] = keeping
     try:
-        render_image_sharded(shrink(with_integrator(scene, name), side), spp,
-                             prng_key(3))
+        render()
     finally:
         ti.INTEGRATOR_FNS[name] = real
     count = kept["stats"][1]
-    return {"buckets": int(count.numel()),
-            "buckets_at_rr_min_samples": int((count >= ti.RR_MIN_SAMPLES).sum()),
-            "max_count": int(count.max())}
+    res = {"buckets": int(count.numel()),
+           "buckets_at_rr_min_samples": int((count >= ti.RR_MIN_SAMPLES).sum()),
+           "max_count": int(count.max())}
+    if not res["buckets_at_rr_min_samples"] > 0:
+        raise AssertionError(f"adaptive RR never reached its samples: {res}")
+    return res
 
 
 def phase_parity(scene, ibl) -> None:
-    """The flagship and every path of the paths phase at 128x128, 1 spp;
-    adaptive RR at 64x64, 20 spp; Mandelbrot at 256x256, no launches."""
+    """The flagship at 128x128, 1 spp, and every other path of the paths
+    phase the same at CHECK_DEPTH bounces; adaptive RR at 64x64, 20 spp,
+    CHECK_DEPTH bounces (its statistics kept from the same renders);
+    Mandelbrot at 256x256, no launches."""
     from simplepath_tpu_torch.core.rng import prng_key
     from simplepath_tpu_torch.parallel.mesh import render_image_sharded
     from simplepath_tpu_torch.render import cuda_traverse as ct
 
     parity_case("iterative_rrnee", scene)
     for name in PATHS:
-        parity_case(name, with_integrator(scene, name))
+        parity_case(name, with_depth(with_integrator(scene, name), CHECK_DEPTH))
     for name in IBL_PATHS:
-        parity_case(f"ibl_{name}", with_integrator(ibl[0], name))
+        parity_case(f"ibl_{name}", with_depth(with_integrator(ibl[0], name),
+                                              CHECK_DEPTH))
 
     # Russian roulette from depth 0, so that every pixel on geometry fills
     # its first bucket on every sample and RR acts from sample 17 on
     dyn = with_integrator(scene, "brute_force_iterative_dynamic_rr")
     dyn = dataclasses.replace(dyn, static=dataclasses.replace(
-        dyn.static, russian_roulette_depth=0))
-    parity_case("brute_force_iterative_dynamic_rr_20spp", dyn, side=64, spp=20)
+        dyn.static, russian_roulette_depth=0, max_depth=CHECK_DEPTH))
+    buckets = dynamic_rr_buckets_filled(lambda: parity_case(
+        "brute_force_iterative_dynamic_rr_20spp", dyn, side=64, spp=20))
     emit("parity", path="brute_force_iterative_dynamic_rr_20spp",
-         side=64, spp=20, **dynamic_rr_buckets_filled(dyn))
+         side=64, spp=20, max_depth=CHECK_DEPTH, **buckets)
 
     mandel = shrink(with_integrator(scene, "mandelbrot"), 256)
     ct.reset_launch_counts()
@@ -1788,9 +1871,10 @@ def phase_train(scene, ibl) -> dict:
     """Reverse-mode rendering on the bench scene: the train path is the 3
     make_train_step calls over the albedo (launch counts set to 0 just
     before them and read just after); then one step over every leaf and
-    over each group of leaves, the 4-spp step, the step's cost, the
-    kernel/plain gradient parity and the finite differences; then the
-    gradient parity of every other traced path (path_grad_parity).
+    over each group of leaves, the 4-spp step, the step's cost; then, on
+    the 64x64 crop at CHECK_DEPTH bounces, the kernel/plain gradient parity
+    and the finite differences, and the gradient parity of every other
+    traced path (path_grad_parity).
     → {"train": launches of the steps, "train_<path>": each path's}."""
     from simplepath_tpu_torch.core.rng import prng_key
     from simplepath_tpu_torch.diff import grad as G
@@ -1850,15 +1934,18 @@ def phase_train(scene, ibl) -> dict:
     leaf_group_steps(scene, p0, target, xs, ys, key)
     step_cost(scene, params, target, xs, ys, key)
 
-    cx, cy = crop_batch(scene)
+    # the crop's checks at CHECK_DEPTH bounces
+    shallow = with_depth(scene, CHECK_DEPTH)
+    cx, cy = crop_batch(shallow)
     ctarget = torch.full((cx.numel(), 3), 0.25, device=scene.device)
-    grad_parity(scene, p_true, ctarget, cx, cy, key)
-    _, g4 = G.render_loss_and_grad(scene, p_true, ctarget, cx, cy, 4, key)
-    crop = (scene, p_true, ctarget, cx, cy, key, 4, g4)
+    grad_parity(shallow, p_true, ctarget, cx, cy, key)
+    _, g4 = G.render_loss_and_grad(shallow, p_true, ctarget, cx, cy, 4, key)
+    crop = (shallow, p_true, ctarget, cx, cy, key, 4, g4)
     fd_check(*crop, "mat_albedo", argmax_index(g4["mat_albedo"]), 1e-3)
     fd_check(*crop, "light_radiance", argmax_index(g4["light_radiance"]), 1e-2)
     fd_probe(*crop)
-    return {"train": by_path, **path_grad_parity(scene, ibl[0], key)}
+    return {"train": by_path, **path_grad_parity(
+        shallow, with_depth(ibl[0], CHECK_DEPTH), key)}
 
 
 GEOM_SHARDS = 4
@@ -1926,7 +2013,7 @@ def phase_geom(scene) -> dict:
     if not gate["max_abs_diff"] < 1e-4:
         raise AssertionError(f"the forest's bench frame departs from the "
                              f"one-BVH frame: {gate}")
-    parity_case("geom_bench", forest)
+    parity_case("geom_bench", with_depth(forest, CHECK_DEPTH))
     one = [s for p, s in turns if p == "one_bvh"]
     four = [s for p, s in turns if p == "forest"]
     emit("geom", path="geom_bench_turns", spp=GEOM_SPP, order="A B",
@@ -2018,7 +2105,8 @@ def phase_lucy(bench, bench_results: dict) -> tuple:
     beside the bench's readings (``bench_results``); sp_closest_count on
     its primary and incoherent rays; the full frame at 1 spp; a 128x128
     render through the kernels bit-equal to the plain-version render; the
-    full frame through a forest of GEOM_SHARDS at the lucy gate
+    frame at LUCY_GATE_SIDE^2 through a forest of GEOM_SHARDS against the
+    same frame through one BVH at the lucy gate
     (tests/test_geom_shard.py:133-135).  Each step's seconds in its line.
     Returns ({path: launches}, kernel results, sp_closest_count results)."""
     import shutil
@@ -2071,11 +2159,14 @@ def phase_lucy(bench, bench_results: dict) -> tuple:
          last_chunk_padding=-n % CHUNK_RAYS_PER_DEVICE)
 
     t0 = time.time()
-    parity = parity_case("lucy", scene)
+    parity = parity_case("lucy", with_depth(scene, CHECK_DEPTH))
     if parity["max_abs_diff"] != 0.0:
         raise AssertionError("lucy's 128x128 kernel render is not bit-equal "
                              f"to the plain-version render: {parity}")
     emit("lucy", step="parity", bit_equal=True, s=time.time() - t0)
+    # the forest's gate frame: one chunk's frame through one BVH here
+    gate_frame, gate_img = render_frame("lucy_gate",
+                                        shrink(scene, LUCY_GATE_SIDE), 1)
 
     # built once, without the cache: the geom phase holds the forest's
     # cache path on the bench
@@ -2086,17 +2177,18 @@ def phase_lucy(bench, bench_results: dict) -> tuple:
     del scene
     torch.cuda.empty_cache()
     shards = [bvh.table_stats(r) for r in forest.bvh.records.cpu().numpy()]
-    fframe, fimg = render_frame("lucy_forest", forest, 1,
-                                render_image_geom_sharded)
+    fframe, fimg = render_frame("lucy_forest", shrink(forest, LUCY_GATE_SIDE),
+                                1, render_image_geom_sharded)
     check_launches("lucy_forest", fframe["launches"], nee=True)
     by_path["lucy_forest"] = fframe["launches"]
-    gate = held_against(fimg, img)
+    gate = held_against(fimg, gate_img)
     emit("lucy", step="forest", **fframe, shards=GEOM_SHARDS,
          forest_build_s=build_s,
          padded_rows=int(forest.bvh.records.shape[1]),
          used_rows=[s["used_rows"] for s in shards],
          mean_leaf_occupancy=[s["mean_leaf_occupancy"] for s in shards],
          depth=[s["depth"] for s in shards], against_one_bvh=gate,
+         one_bvh_render_s=gate_frame["render_s"],
          host_peak_rss_bytes=host_peak_rss())
     if not (gate["share_over_1e3"] < 0.01
             and abs(gate["mean"] - gate["ref_mean"]) < 0.01 * gate["ref_mean"]):
@@ -2116,8 +2208,9 @@ CLI_RANKS = 2
 
 def run_rank(rank: int, world: int, out: str) -> None:
     """One rank of the ranks phase (``chip_smoke.py --rank R``): joins the
-    others over gloo on this card, renders the bench frame at 1 spp and
-    takes one train step, and saves what it computed in ``out``."""
+    others over gloo on this card, renders the bench frame at RANKS_SIDE^2
+    and 1 spp and takes one train step, and saves what it computed in
+    ``out``."""
     import datetime
 
     import torch.distributed as dist
@@ -2137,12 +2230,13 @@ def run_rank(rank: int, world: int, out: str) -> None:
                      timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
     try:
         scene = sp.load_scene(SCENE)
-        warm_s = warmup_render(scene, 1, make_ray_mesh())
+        frame = shrink(scene, RANKS_SIDE)
+        warm_s = warmup_render(frame, 1, make_ray_mesh())
         res = {"rank": rank, "world": world, "warmup_s": warm_s}
         torch.cuda.synchronize()
         ct.reset_launch_counts()
         t0 = time.time()
-        img = render_image_multihost(scene, 1, prng_key(0))
+        img = render_image_multihost(frame, 1, prng_key(0))
         torch.cuda.synchronize()
         res.update(render_s=time.time() - t0, launches=dict(ct.launch_counts))
 
@@ -2187,7 +2281,7 @@ def spawn_ranks(out: str, world: int) -> None:
 
 def phase_ranks(scene) -> dict:
     """RANKS processes on this one card over gloo: each rank's 1-spp bench
-    frame equals the one-process frame, and one train step matches the
+    frame (RANKS_SIDE^2) equals the one-process frame, and one train step matches the
     one-process step.  The one-process frame is also timed in a fresh
     process, a world of one running the ranks' own job."""
     import shutil
@@ -2214,10 +2308,11 @@ def phase_ranks(scene) -> dict:
     def one_process():
         """The 1-spp frame in this process, timed as a rank times its own:
         after the same warm-up."""
-        warmup_render(scene, 1)
+        frame = shrink(scene, RANKS_SIDE)
+        warmup_render(frame, 1)
         torch.cuda.synchronize()
         t0 = time.time()
-        img = render_image_sharded(scene, 1, prng_key(0))
+        img = render_image_sharded(frame, 1, prng_key(0))
         torch.cuda.synchronize()
         return time.time() - t0, img.cpu().numpy()
 
@@ -2374,7 +2469,7 @@ def ptxas_summary(lines: list) -> dict:
     by the kernel and its template arguments (``traverse_kernel<0,0>`` is
     sp_closest, ``<1,0>`` sp_anyhit, ``<0,1>`` sp_closest_count; the
     probes' ``row_chase_kernel<C,feed>`` and
-    ``visit_body_kernel<mode,check>``): registers, spill stores and loads,
+    ``visit_body_kernel<layout,mode,check>``): registers, spill stores and loads,
     stack frame and shared memory, in bytes."""
     out, name = {}, None
     for line in lines:
@@ -2395,13 +2490,22 @@ def ptxas_summary(lines: list) -> dict:
     return out
 
 
+def check_no_spills(ptxas: dict, library: str) -> None:
+    """Raises if ptxas_summary shows a kernel that spills registers."""
+    spills = {k: v for k, v in ptxas.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if spills or not ptxas:
+        raise AssertionError(f"{library}: kernels spill: {spills or ptxas}")
+
+
 def run_topology(job: str, out: str) -> None:
     """One process of the topology phase (``chip_smoke.py --topology-job
     JOB``), at the topology its environment sets: with ``full`` or
     ``check``, the library built anew with ptxas's verbose lines, both
     kernels against their plain versions on the bench's five ray sets and
     the 128x128 render parity (``full`` also times the visit body); with
-    every job, the 1024x1024 flagship frame at 1 spp under prng_key(0),
+    every job, the flagship frame at TOPOLOGY_SIDE^2 (the bench's camera,
+    one chunk) and 1 spp under prng_key(0),
     after a warm-up chunk.  The library and the scene are ready before the
     process waits for its turn on the card (``out/go``).  Writes
     result.json and frame.npy into ``out``."""
@@ -2419,6 +2523,7 @@ def run_topology(job: str, out: str) -> None:
         lib = ct.library_path()
         res["ptxas"] = ct._compile_source(ct.KERNEL_SOURCE, lib,
                                           verbose=True).splitlines()
+        check_no_spills(ptxas_summary(res["ptxas"]), lib)
     else:
         lib = ct.build_library()
     ct._library()
@@ -2438,14 +2543,16 @@ def run_topology(job: str, out: str) -> None:
     res["waited_s"] = time.time() - t0
     if checked:
         res["kernels"] = list(phase_kernels(scene, kernel_ray_sets(scene)[0]).values())
-        res["parity"] = parity_case("iterative_rrnee", scene)
+        res["parity"] = parity_case("iterative_rrnee",
+                                    with_depth(scene, CHECK_DEPTH))
         if res["parity"]["max_abs_diff"] != 0.0:
             raise AssertionError("the 128x128 kernel render is not bit-equal "
                                  f"to the plain-version render: {res['parity']}")
     if job == "full":
         res["visit_body"] = probe_visit_body(scene.bvh.records)
-    res["warmup_s"] = warmup_render(scene, 1)
-    summary, img = render_frame("topology_frame", scene, 1)
+    small = shrink(scene, TOPOLOGY_SIDE)
+    res["warmup_s"] = warmup_render(small, 1)
+    summary, img = render_frame("topology_frame", small, 1)
     check_launches("topology_frame", summary["launches"], nee=True)
     res["frame"] = summary
     np.save(os.path.join(out, "frame.npy"), img.cpu().numpy())
@@ -2497,18 +2604,18 @@ def phase_topology() -> tuple:
     out = os.path.join(OUT_DIR, "topology")
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
-    # one process at a time has its turn on the card; the next one starts
-    # up (imports, build, scene load) during that turn
+    # every process starts up (imports, build, scene load) at once; one at
+    # a time has its turn on the card
     dirs = [os.path.join(out, f"{i}_{name}_{job}")
             for i, (name, job) in enumerate(TOPOLOGY_TURNS)]
-    runs, procs = [], [start_topology(*TOPOLOGY_TURNS[0], dirs[0])]
+    runs, procs = [], []
     try:
+        for turn, d in zip(TOPOLOGY_TURNS, dirs):
+            procs.append(start_topology(*turn, d))
         for i, (name, job) in enumerate(TOPOLOGY_TURNS):
             await_topology(procs[i], dirs[i], ready=True)
             t0 = time.time()
             open(os.path.join(dirs[i], "go"), "w").close()
-            if i + 1 < len(TOPOLOGY_TURNS):
-                procs.append(start_topology(*TOPOLOGY_TURNS[i + 1], dirs[i + 1]))
             await_topology(procs[i], dirs[i], ready=False)
             with open(os.path.join(dirs[i], "result.json")) as f:
                 runs.append((name, job, json.load(f), time.time() - t0))
@@ -2604,21 +2711,32 @@ def probe_entry(name: str, main: dict, cases: list, launches: dict,
     }
 
 
-BODY_KEEP = ("table", "mode", "shape", "rays", "blocks_per_sm", "bodies",
-             "output", "kernel_ms", "ns_per_body", "ns_per_ray_body",
-             "bodies_per_s", "bound_ms", "kernel_ms_at_plain_bodies",
-             "plain_ms_at_plain_bodies")
+BODY_KEEP = ("table", "mode", "shape", "rays", "blocks_per_sm", "output",
+             "checked_bodies", "bodies", "kernel_ms", "ns_per_body",
+             "ns_per_ray_body", "bodies_per_s", "bound_ms", "bound_share",
+             "kernel_ms_at_plain_bodies", "plain_ms_at_plain_bodies")
 
 
-def visit_body_entry(name: str, bodies: list, launches: dict) -> dict:
-    """The visit body: times at PLAIN_BODIES on the bench's full wave of
-    the ``internal`` mode, where the plain version is timed too."""
-    main = next(c for c in bodies if c["table"] == "bench"
-                and c["mode"] == "internal" and c["shape"] == "every_sm")
-    return probe_entry(name, {**main, "ms": main["kernel_ms_at_plain_bodies"],
-                              "plain_ms": main["plain_ms_at_plain_bodies"],
-                              "bound_ms": main["bound_ms_at_plain_bodies"]},
-                       bodies, launches, BODY_KEEP)
+def visit_body_entries(bodies: list, launches: dict, suffix: str = "") -> list:
+    """The visit body, one entry a layout (``visit_body_lane``,
+    ``visit_body_group``, then ``suffix``): times at PLAIN_BODIES on
+    MAIN_BODY_CASE, where the plain version is timed too; every case the
+    layout was checked on under ``cases``; its launches in the frame."""
+    from simplepath_tpu_torch.render import cuda_probes as cp
+    entries = []
+    for layout in cp.BODY_LAYOUTS:
+        cases = [c for c in bodies if c["layout"] == layout]
+        main = next(c for c in cases
+                    if (c["table"], c["mode"], c["shape"]) == MAIN_BODY_CASE)
+        entry = probe_entry(
+            f"visit_body_{layout}{suffix}",
+            {**main, "ms": main["kernel_ms_at_plain_bodies"],
+             "plain_ms": main["plain_ms_at_plain_bodies"],
+             "bound_ms": main["bound_ms_at_plain_bodies"]},
+            cases, launches, BODY_KEEP)
+        entries.append({**entry, "layout": layout,
+                        "launches": launches.get(f"visit_body_{layout}", 0)})
+    return entries
 
 
 COUNT_KEEP = ("case", "n", "kernel_ms", "closest_ms_in_turns", "counting_cost",
@@ -2647,7 +2765,7 @@ def probe_entries(probes: dict, launches: dict) -> list:
                     launches, COUNT_KEEP),
         chase_entry("row_chase_bulk", "bulk", chase, launches),
         chase_entry("row_chase_ldg", "ldg", chase, launches),
-        visit_body_entry("visit_body", probes["visit_body"], launches),
+        *visit_body_entries(probes["visit_body"], launches),
     ]
 
 
@@ -2660,9 +2778,9 @@ def kernels_line(results: dict, launches: dict, by_path: dict,
     launches from lucy's 1-spp frame) and at every other topology the
     topology phase drove (``closest_w16_k12``, ..., launches from that
     topology's frame); the three measuring kernels (``closest_count``,
-    ``row_chase_bulk`` / ``row_chase_ldg``, ``visit_body``, and the visit
-    body at the topologies whose job timed it, ``visit_body_w16_k12``,
-    ...)."""
+    ``row_chase_bulk`` / ``row_chase_ldg``, ``visit_body_lane`` /
+    ``visit_body_group``, and the visit body's layouts at the topologies
+    whose job timed them, ``visit_body_lane_w16_k12``, ...)."""
     from simplepath_tpu_torch.scene.bvh import LEAF_SIZE, WIDTH
     entries = []
     if results:
@@ -2687,8 +2805,8 @@ def kernels_line(results: dict, launches: dict, by_path: dict,
                                  int(knobs["SIMPLEPATH_BVH_LEAF"]))
                     for k in ("closest", "anyhit")]
         if topo in topo_bodies:
-            entries.append(visit_body_entry(f"visit_body_{topo}",
-                                            topo_bodies[topo], topo_launches[topo]))
+            entries += visit_body_entries(topo_bodies[topo],
+                                          topo_launches[topo], f"_{topo}")
     return {"kernels": entries, "launches_by_path": by_path}
 
 

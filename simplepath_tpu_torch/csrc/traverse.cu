@@ -10,7 +10,12 @@
 //                       tools/prof_npush.py::hist_closest
 //   sp_row_chase     <- tools/prof_visits.py::dma_chase and
 //                       tools/prof_dma_chains.py::chase
-//   sp_visit_body    <- tools/prof_visit_vpu.py::make_kernel
+//   sp_visit_body    <- tools/prof_visit_vpu.py::make_kernel, in two
+//                       layouts: the traversal's visit, G lanes a ray (what
+//                       sp_closest's visit costs), and the TPU kernel's own,
+//                       one thread a ray with the row broadcast from shared
+//                       memory and the Batcher network in registers (the
+//                       default: what the body costs on this card)
 // and computes, ray for ray, what the JAX package's per-ray formulation
 // (render/traverse.py::_bvh_closest / _bvh_any) computes: same visit order,
 // same slab and Shirley arithmetic, same tie rules.  The plain PyTorch
@@ -82,8 +87,10 @@
 //
 // The visit functions take the place a row is read from as a parameter
 // (FromTable: the table in device memory through the read-only cache;
-// FromShared: a copy in shared memory, for the visit-body probe), so that
-// the probes run the traversal's own arithmetic.
+// FromShared: a copy in shared memory, for the visit-body probe's group
+// layout), so that the probes run the traversal's own arithmetic; the
+// visit body's lane layout repeats it operation for operation on values in
+// registers (slab_key, tri_test).
 //
 // Build (done at first use by render/cuda_traverse.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
@@ -685,15 +692,14 @@ int launch_chase(const float* records, int n_rows, int hops, int feed,
 // sp_visit_body <- tools/prof_visit_vpu.py::make_kernel.  `bodies`
 // back-to-back visit bodies on two rows held in shared memory, for the
 // probe's fixed ray (origin (0.1 + 1e-6 s, 2, 5), inverse direction
-// (3, -7, 2), t_min 1e-3; the seed s picks rows |s| - 1 and |s|), through
-// the traversal's own device functions:
-//   BODY_INTERNAL  child_key, place_children and push_children: the slab
-//                  test of child c on lane c, placement by rank (the network
-//                  on equal keys), the ballot and the push;
-//   BODY_NOREL     child_key alone: no shuffle, no vote;
-//   BODY_SORT      place_children on keys row[c] and refs row[W + c];
-//   BODY_LEAF      leaf_slots (the lane's K/G triangle slots, all K live) and
-//                  group_first_min (the butterfly).
+// (3, -7, 2), t_min 1e-3; the seed s picks rows |s| - 1 and |s|), in four
+// modes:
+//   BODY_INTERNAL  the slab tests of the W children, their placement far
+//                  to near by key, and the push of the hit children's refs;
+//   BODY_NOREL     the slab tests alone;
+//   BODY_SORT      the placement of keys row[c] and refs row[W + c];
+//   BODY_LEAF      the K triangle tests of a leaf (all K live) and their
+//                  first minimum.
 // The row is read from shared memory anew each body (its address adds a
 // zero read from shared memory as volatile, which no compiler pass can fold,
 // so no load or arithmetic of a body leaves the loop), and each body's
@@ -701,34 +707,163 @@ int launch_chase(const float* records, int n_rows, int hops, int feed,
 // the TPU probe's output value (internal: NaN where a child is not hit;
 // leaf: the nearest hit t of row |s|, or inf).  One warp's launch reads the
 // latency of a body; a launch that fills every SM reads their throughput.
-// What bounds it: instruction issue (the bodies' operations); the rows are
-// read from device memory once a block.
+// The rows are read from device memory once a block, so what bounds it is
+// instruction issue.  Two layouts, one template (BodyLayout), the same
+// function:
+//   LAYOUT_GROUP  the traversal's visit: G = W lanes a ray through its own
+//                 device functions (child_key, place_children,
+//                 push_children, leaf_slots, group_first_min), so that it
+//                 reads what sp_closest's visit costs.  Every ray runs the
+//                 same M bodies, so there is no chain of visits for the
+//                 group to shorten: the shuffles, votes and __syncwarp of a
+//                 body are its cost, and a body's few independent slab
+//                 tests per lane leave issue slots idle while they wait.
+//   LAYOUT_LANE   the TPU kernel's own layout on this card: one thread a
+//                 ray (every VPU lane of the TPU's tile is a ray), no
+//                 shuffle, vote or __syncwarp.  The row is read as 16-byte
+//                 loads that every lane of a warp makes at one address (one
+//                 shared-memory wavefront: the TPU's SMEM scalars broadcast
+//                 to the rays).  The W slab tests run in registers,
+//                 independent of each other, so their latency overlaps
+//                 within a thread; the keys and refs go through the Batcher
+//                 network in registers (no rank shortcut, no tie branch);
+//                 the hit refs go by predicated stores to W slots a ray in
+//                 shared memory (every body pushes from sp = 0), so shared
+//                 memory does not cap occupancy: registers do.  Each
+//                 operation is child_key's / tri_test's, so the values are
+//                 the group layout's bit for bit.  With -fmad=false every
+//                 counted operation issues alone, while the 67 TFLOP/s peak
+//                 counts an FMA as two: half the operation bound is the most
+//                 any design of this body can reach.
 // CHECK (a check launch, not timed) also writes what each lane of a ray
-// holds after the last body, 4 floats a lane, so that the bodies are held
-// against their plain version value by value, not only by the output:
+// holds after the last body, 4 floats a lane, G = W lanes a ray in both
+// layouts, so that the bodies are held against their plain version value
+// by value, not only by the output:
 //   BODY_INTERNAL, BODY_SORT  lane j: the key and ref at place j (the
 //                  pushed order, nearest last), the count of keys > NEG_BIG
 //                  (n_push), 0; places past the count (-inf, 0, count, 0);
 //   BODY_NOREL     lane c: child c's key, near, far and ref;
-//   BODY_LEAF      lane c: its first minimum's t and slot, and the group's.
+//   BODY_LEAF      lane c: the first minimum of slots c, c + G, ...: its t
+//                  and slot, and the ray's first minimum (t, slot).
 enum BodyMode { BODY_INTERNAL = 0, BODY_NOREL = 1, BODY_SORT = 2, BODY_LEAF = 3 };
+enum BodyLayout { LAYOUT_LANE = 0, LAYOUT_GROUP = 1 };
 
-template <int MODE, bool CHECK>
-__global__ void __launch_bounds__(BLOCK)
-visit_body_kernel(const float* __restrict__ records, int first_row,
-                  float seed, int bodies, int n, float* __restrict__ out,
-                  float* __restrict__ lanes) {
-    __shared__ float rows[2][LEAF_ROWS * ROW];   // rows |s| - 1 and |s| on
-    __shared__ int stacks[RAYS][STACK];
-    __shared__ int zero;             // read as volatile: 0, unknown to the compiler
-    if (threadIdx.x == 0) zero = 0;
-    for (int q = threadIdx.x; q < 2 * LEAF_ROWS * ROW; q += BLOCK) {
-        const int b = q / (LEAF_ROWS * ROW);
-        rows[b][q - b * LEAF_ROWS * ROW] =
-            __ldg(records + (size_t)(first_row + b) * ROW + (q - b * LEAF_ROWS * ROW));
+static_assert(W % 4 == 0, "an internal row's column blocks are 16-byte aligned");
+
+// Four consecutive floats of a row in shared memory (p 16-byte aligned): one
+// 128-bit load, made by every lane of a warp at one address.
+__device__ __forceinline__ float4 ld_quad(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+// Element j of a quad (j is a constant once the loops are unrolled).
+__device__ __forceinline__ float quad_at(const float4& q, int j) {
+    return j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.w;
+}
+
+// child_key's slab test on a child's fields held in registers, operation for
+// operation: the same pmin / pmax, comparisons and order, no contraction, so
+// the key, near and far are child_key's bit for bit.
+__device__ __forceinline__ float slab_key(float lox, float loy, float loz,
+                                          float hix, float hiy, float hiz,
+                                          int cref, const Ray& r,
+                                          float cur_t_max, float& near,
+                                          float& far) {
+    const float t0x = (lox - r.ox) * r.ix;
+    const float t0y = (loy - r.oy) * r.iy;
+    const float t0z = (loz - r.oz) * r.iz;
+    const float t1x = (hix - r.ox) * r.ix;
+    const float t1y = (hiy - r.oy) * r.iy;
+    const float t1z = (hiz - r.oz) * r.iz;
+    const float tnear = pmax(pmax(pmin(t0x, t1x), pmin(t0y, t1y)),
+                             pmin(t0z, t1z));
+    const float tfar = pmin(pmin(pmax(t0x, t1x), pmax(t0y, t1y)),
+                            pmax(t0z, t1z));
+    near = pmax(tnear, r.t_min);
+    far = pmin(tfar, cur_t_max);
+    const bool hit = (near <= far) && (tfar >= r.t_min) && (cref != 0);
+    return hit ? tnear : -INFINITY;
+}
+
+// The W slab tests of an internal row for one ray, child c against its own
+// limit[c]: the row's seven column blocks of W floats read four children at
+// a time, one 16-byte load a block.
+__device__ __forceinline__ void lane_slab_tests(const float* row, const Ray& r,
+                                                const float (&limit)[W],
+                                                float (&key)[W], int (&cref)[W],
+                                                float (&near)[W], float (&far)[W]) {
+#pragma unroll
+    for (int q = 0; q < W; q += 4) {
+        const float4 lox = ld_quad(row + q), loy = ld_quad(row + W + q);
+        const float4 loz = ld_quad(row + 2 * W + q);
+        const float4 hix = ld_quad(row + 3 * W + q);
+        const float4 hiy = ld_quad(row + 4 * W + q);
+        const float4 hiz = ld_quad(row + 5 * W + q);
+        const float4 ref = ld_quad(row + 6 * W + q);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int c = q + j;
+            cref[c] = (int)quad_at(ref, j);
+            key[c] = slab_key(quad_at(lox, j), quad_at(loy, j), quad_at(loz, j),
+                              quad_at(hix, j), quad_at(hiy, j), quad_at(hiz, j),
+                              cref[c], r, limit[c], near[c], far[c]);
+        }
     }
-    __syncthreads();
+}
 
+// The Batcher network on W keys and values in registers, descending by key:
+// the stages of Width<W>::partners in order, pair (a, b), a < b, swapped
+// where key[a] < key[b].  A stage's pairs touch disjoint elements, so this is
+// the order of the sequential pair list batcher_pairs(W), ties included
+// (render/cuda_traverse.py::sort_stages).
+template <class V>
+__device__ __forceinline__ void lane_sort(float (&key)[W], V (&val)[W]) {
+    using Net = Width<W>;
+#pragma unroll
+    for (int s = 0; s < Net::SORT_STAGES; ++s) {
+#pragma unroll
+        for (int a = 0; a < W; ++a) {
+            const int b = (int)((Net::partners(s) >> (4 * a)) & (W - 1));
+            if (a < b) {
+                const bool sw = key[a] < key[b];
+                const float ka = key[a];
+                const V va = val[a];
+                key[a] = sw ? key[b] : ka;
+                key[b] = sw ? ka : key[b];
+                val[a] = sw ? val[b] : va;
+                val[b] = sw ? va : val[b];
+            }
+        }
+    }
+}
+
+// The 9 fields of leaf slots 4g .. 4g + 3 (field f is the block of K floats
+// at f * K): a 16-byte load a field where K % 4 == 0 (K = 12, 24: every block
+// 16-byte aligned); scalar loads where the blocks are not aligned (K = 5,
+// 29), and 0 past slot K - 1.
+__device__ __forceinline__ void leaf_quad(const float* row, int g,
+                                          float (&v)[9][4]) {
+#pragma unroll
+    for (int f = 0; f < 9; ++f) {
+        if constexpr (K % 4 == 0) {
+            const float4 q = ld_quad(row + f * K + 4 * g);
+            v[f][0] = q.x; v[f][1] = q.y; v[f][2] = q.z; v[f][3] = q.w;
+        } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                v[f][j] = (4 * g + j < K) ? row[f * K + 4 * g + j] : 0.0f;
+        }
+    }
+}
+
+// LAYOUT_GROUP: G = W lanes a ray, through the traversal's own device
+// functions (the note above).
+template <int MODE, bool CHECK>
+__device__ __forceinline__ void
+group_bodies(const float (*rows)[LEAF_ROWS * ROW], const int* zero,
+             float seed, int bodies, int n, float* __restrict__ out,
+             float* __restrict__ lanes) {
+    __shared__ int stacks[RAYS][STACK];
     const int group = threadIdx.x / G;
     const int i = blockIdx.x * RAYS + group;
     if (i >= n) return;
@@ -746,17 +881,20 @@ visit_body_kernel(const float* __restrict__ records, int first_row,
     float w0 = 0.0f, w1 = 0.0f, w2 = 0.0f, w3 = 0.0f;   // CHECK: the last body's
     int w_place = 0;
     for (int m = 0; m < bodies; ++m) {
-        const int z = *(volatile int*)&zero;
+        const int z = *(volatile const int*)zero;
         const float* node = rows[0] + z;
         const float* leaf = rows[1] + z;
         if constexpr (MODE == BODY_INTERNAL) {
             int val;
             float near, far;
             float key = child_key<FromShared>(node, r, carry, c, val, near, far);
+            // child c's own key feeds its next limit: on tied keys
+            // place_children leaves place c's key in this lane
+            const float own = key;
             const int place = place_children(key, val, c, gmask);
             int sp = 0;
             const int n_push = push_children(key, val, place, gmask, stack, sp);
-            carry = carry + key * 0.0f + (float)n_push * 0.0f;
+            carry = carry + own * 0.0f + (float)n_push * 0.0f;
             if constexpr (CHECK) {
                 w0 = key; w1 = (float)val; w2 = (float)n_push; w_place = place;
             }
@@ -818,27 +956,233 @@ visit_body_kernel(const float* __restrict__ records, int first_row,
     if (c == 0) out[i] = carry;
 }
 
-template <int MODE>
+// LAYOUT_LANE: one thread a ray (the note above).
+template <int MODE, bool CHECK>
+__device__ __forceinline__ void
+lane_bodies(const float (*rows)[LEAF_ROWS * ROW], const int* zero,
+            float seed, int bodies, int n, float* __restrict__ out,
+            float* __restrict__ lanes) {
+    __shared__ int pushed[W][BLOCK];    // each ray's W slots, slot-major
+    const int i = blockIdx.x * BLOCK + threadIdx.x;
+    if (i >= n) return;
+    // the ray as per-thread data (the seed plus a zero the compiler
+    // cannot see, times the thread's index), as the group's carry is
+    const float s = seed + (float)(*(volatile const int*)zero * (int)threadIdx.x);
+    Ray r;
+    r.ox = 0.1f + s * 1e-6f; r.oy = 2.0f; r.oz = 5.0f;
+    r.ix = 3.0f; r.iy = -7.0f; r.iz = 2.0f;
+    r.dx = 1.0f / r.ix; r.dy = 1.0f / r.iy; r.dz = 1.0f / r.iz;
+    r.t_min = 1e-3f;
+
+    // the limits the next body tests against: one a child in the
+    // internal modes (as the group's lanes hold them), else carry[0]
+    float carry[W];
+#pragma unroll
+    for (int c = 0; c < W; ++c) carry[c] = INFINITY;
+    // the last body's values, which a check launch writes out
+    float key[W], near[W], far[W], skey[W], sval[W];
+    int cref[W], sref[W], count = 0;
+    float best_t[G], win_t = INFINITY;
+    int best_k[G], win_k = 0;
+#pragma unroll 1
+    for (int m = 0; m < bodies; ++m) {
+        const int z = *(volatile const int*)zero;
+        const float* node = rows[0] + z;
+        const float* leaf = rows[1] + z;
+        if constexpr (MODE == BODY_INTERNAL || MODE == BODY_NOREL) {
+            lane_slab_tests(node, r, carry, key, cref, near, far);
+        }
+        if constexpr (MODE == BODY_INTERNAL) {
+#pragma unroll
+            for (int c = 0; c < W; ++c) { skey[c] = key[c]; sref[c] = cref[c]; }
+            lane_sort(skey, sref);
+            count = 0;
+#pragma unroll
+            for (int j = 0; j < W; ++j) {       // places 0 .. count - 1
+                const bool live = skey[j] > NEG_BIG;
+                count += live;
+                if (live) pushed[j][threadIdx.x] = sref[j];
+            }
+#pragma unroll
+            for (int c = 0; c < W; ++c)
+                carry[c] = carry[c] + key[c] * 0.0f + (float)count * 0.0f;
+        } else if constexpr (MODE == BODY_NOREL) {
+#pragma unroll
+            for (int c = 0; c < W; ++c)
+                carry[c] = carry[c] + (near[c] * 0.0f + far[c] * 0.0f) * 0.0f;
+        } else if constexpr (MODE == BODY_SORT) {
+#pragma unroll
+            for (int q = 0; q < W; q += 4) {
+                const float4 k4 = ld_quad(node + q), v4 = ld_quad(node + W + q);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    skey[q + j] = quad_at(k4, j);
+                    sval[q + j] = quad_at(v4, j);
+                }
+            }
+            lane_sort(skey, sval);
+            carry[0] = carry[0] + (skey[0] * 0.0f + sval[0] * 0.0f);
+            if constexpr (CHECK) {
+                count = 0;
+#pragma unroll
+                for (int j = 0; j < W; ++j) count += skey[j] > NEG_BIG;
+            }
+            // every place of the network is live (the output reads
+            // place 0 only): its bits fold into a term that the zero,
+            // unknown to the compiler, keeps out of the result
+            unsigned h = 0;
+#pragma unroll
+            for (int j = 1; j < W; ++j)
+                h ^= __float_as_uint(skey[j]) ^ __float_as_uint(sval[j]);
+            if (z != 0) carry[0] = __uint_as_float(h);
+        } else {
+            // the K slots in order; the first minimum: smaller t, at
+            // equal t the smaller slot (strict <); a check launch keeps
+            // each slot's t and test, then takes the first minimum of each
+            // class of slots c, c + G, ... and the ray's (kept in the slot
+            // loop instead, they spill at K = 12)
+            float my_t = INFINITY;
+            float slot_t[K];
+            bool slot_ok[K];
+#pragma unroll
+            for (int g = 0; g < (K + 3) / 4; ++g) {
+                float v[9][4];
+                leaf_quad(leaf, g, v);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const int k = 4 * g + j;
+                    if (k < K) {
+                        float t, beta, gamma;
+                        const bool ok = tri_test(
+                            v[0][j], v[1][j], v[2][j], v[3][j], v[4][j],
+                            v[5][j], v[6][j], v[7][j], v[8][j], r,
+                            carry[0], t, beta, gamma);
+                        if (ok && t < my_t) my_t = t;
+                        if constexpr (CHECK) { slot_t[k] = t; slot_ok[k] = ok; }
+                    }
+                }
+            }
+            if constexpr (CHECK) {
+#pragma unroll
+                for (int c = 0; c < G; ++c) {
+                    best_t[c] = INFINITY; best_k[c] = c;
+#pragma unroll
+                    for (int k = c; k < K; k += G) {
+                        if (slot_ok[k] && slot_t[k] < best_t[c]) {
+                            best_t[c] = slot_t[k]; best_k[c] = k;
+                        }
+                    }
+                }
+                win_t = best_t[0]; win_k = best_k[0];
+#pragma unroll
+                for (int c = 1; c < G; ++c) {
+                    if (best_t[c] < win_t || (best_t[c] == win_t && best_k[c] < win_k)) {
+                        win_t = best_t[c]; win_k = best_k[c];
+                    }
+                }
+            }
+            carry[0] = (my_t < carry[0]) ? my_t : carry[0];
+        }
+    }
+    float result = carry[0];
+    if constexpr (MODE == BODY_INTERNAL || MODE == BODY_NOREL) {
+#pragma unroll
+        for (int c = 1; c < W; ++c) result = pmax(result, carry[c]);
+    }
+    if constexpr (MODE == BODY_INTERNAL)     // the pushes are read
+        result = result + (float)pushed[0][threadIdx.x] * 0.0f;
+    if constexpr (CHECK) {
+        float4* lane = reinterpret_cast<float4*>(lanes) + (size_t)i * G;
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+            if constexpr (MODE == BODY_INTERNAL || MODE == BODY_SORT) {
+                const bool live = j < count;
+                float v;
+                if constexpr (MODE == BODY_INTERNAL) v = (float)sref[j];
+                else v = sval[j];
+                lane[j] = make_float4(live ? skey[j] : -INFINITY,
+                                      live ? v : 0.0f, (float)count, 0.0f);
+            } else if constexpr (MODE == BODY_NOREL) {
+                lane[j] = make_float4(key[j], near[j], far[j], (float)cref[j]);
+            } else {
+                lane[j] = make_float4(best_t[j], (float)best_k[j], win_t,
+                                      (float)win_k);
+            }
+        }
+    }
+    out[i] = result;
+}
+
+template <int LAYOUT, int MODE, bool CHECK>
+__global__ void __launch_bounds__(BLOCK)
+visit_body_kernel(const float* __restrict__ records, int first_row,
+                  float seed, int bodies, int n, float* __restrict__ out,
+                  float* __restrict__ lanes) {
+    __shared__ __align__(16) float rows[2][LEAF_ROWS * ROW];   // rows |s| - 1 and |s| on
+    __shared__ int zero;             // read as volatile: 0, unknown to the compiler
+    if (threadIdx.x == 0) zero = 0;
+    for (int q = threadIdx.x; q < 2 * LEAF_ROWS * ROW; q += BLOCK) {
+        const int b = q / (LEAF_ROWS * ROW);
+        rows[b][q - b * LEAF_ROWS * ROW] =
+            __ldg(records + (size_t)(first_row + b) * ROW + (q - b * LEAF_ROWS * ROW));
+    }
+    __syncthreads();
+    if constexpr (LAYOUT == LAYOUT_LANE)
+        lane_bodies<MODE, CHECK>(rows, &zero, seed, bodies, n, out, lanes);
+    else
+        group_bodies<MODE, CHECK>(rows, &zero, seed, bodies, n, out, lanes);
+}
+
+template <int LAYOUT, int MODE>
 int launch_body(const void* records, int first_row, float seed, int bodies,
                 int n, void* out, void* lanes, void* stream) {
     if (n > 0) {
-        const int grid = (n + RAYS - 1) / RAYS;
+        const int rays = (LAYOUT == LAYOUT_LANE) ? BLOCK : RAYS;   // a block
+        const int grid = (n + rays - 1) / rays;
         const cudaStream_t s = (cudaStream_t)stream;
         const float* rec = (const float*)records;
         if (lanes)
-            visit_body_kernel<MODE, true><<<grid, BLOCK, 0, s>>>(
+            visit_body_kernel<LAYOUT, MODE, true><<<grid, BLOCK, 0, s>>>(
                 rec, first_row, seed, bodies, n, (float*)out, (float*)lanes);
         else
-            visit_body_kernel<MODE, false><<<grid, BLOCK, 0, s>>>(
+            visit_body_kernel<LAYOUT, MODE, false><<<grid, BLOCK, 0, s>>>(
                 rec, first_row, seed, bodies, n, (float*)out, nullptr);
     }
     return (int)cudaGetLastError();
 }
 
-template <int MODE>
+template <int LAYOUT, int MODE>
 int body_blocks_per_sm(int* blocks) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, visit_body_kernel<MODE, false>, BLOCK, 0);
+        blocks, visit_body_kernel<LAYOUT, MODE, false>, BLOCK, 0);
+}
+
+template <int LAYOUT>
+int launch_body_mode(const void* records, int first_row, float seed, int mode,
+                     int bodies, int n, void* out, void* lanes, void* stream) {
+    switch (mode) {
+        case BODY_INTERNAL:
+            return launch_body<LAYOUT, BODY_INTERNAL>(records, first_row, seed, bodies, n, out, lanes, stream);
+        case BODY_NOREL:
+            return launch_body<LAYOUT, BODY_NOREL>(records, first_row, seed, bodies, n, out, lanes, stream);
+        case BODY_SORT:
+            return launch_body<LAYOUT, BODY_SORT>(records, first_row, seed, bodies, n, out, lanes, stream);
+        case BODY_LEAF:
+            return launch_body<LAYOUT, BODY_LEAF>(records, first_row, seed, bodies, n, out, lanes, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
+template <int LAYOUT>
+int body_mode_blocks_per_sm(int mode, int* blocks) {
+    switch (mode) {
+        case BODY_INTERNAL: return body_blocks_per_sm<LAYOUT, BODY_INTERNAL>(blocks);
+        case BODY_NOREL: return body_blocks_per_sm<LAYOUT, BODY_NOREL>(blocks);
+        case BODY_SORT: return body_blocks_per_sm<LAYOUT, BODY_SORT>(blocks);
+        case BODY_LEAF: return body_blocks_per_sm<LAYOUT, BODY_LEAF>(blocks);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -892,21 +1236,18 @@ extern "C" int sp_row_chase(const void* records, int n_rows, int chains,
     }
 }
 
-// mode: BodyMode; n rays, out f32[n]; lanes f32[n, G, 4] for a check
-// launch, else null; rows first_row and first_row + 1 on
-// (LEAF_ROWS each) must lie in the table
+// mode: BodyMode, layout: BodyLayout (others of either return
+// cudaErrorInvalidValue); n rays, out f32[n]; lanes f32[n, G, 4] for a
+// check launch, else null; rows first_row and first_row + 1 on (LEAF_ROWS
+// each) must lie in the table
 extern "C" int sp_visit_body(const void* records, int first_row, float seed,
-                             int mode, int bodies, int n, void* out,
-                             void* lanes, void* stream) {
-    switch (mode) {
-        case BODY_INTERNAL:
-            return launch_body<BODY_INTERNAL>(records, first_row, seed, bodies, n, out, lanes, stream);
-        case BODY_NOREL:
-            return launch_body<BODY_NOREL>(records, first_row, seed, bodies, n, out, lanes, stream);
-        case BODY_SORT:
-            return launch_body<BODY_SORT>(records, first_row, seed, bodies, n, out, lanes, stream);
-        case BODY_LEAF:
-            return launch_body<BODY_LEAF>(records, first_row, seed, bodies, n, out, lanes, stream);
+                             int mode, int layout, int bodies, int n,
+                             void* out, void* lanes, void* stream) {
+    switch (layout) {
+        case LAYOUT_LANE:
+            return launch_body_mode<LAYOUT_LANE>(records, first_row, seed, mode, bodies, n, out, lanes, stream);
+        case LAYOUT_GROUP:
+            return launch_body_mode<LAYOUT_GROUP>(records, first_row, seed, mode, bodies, n, out, lanes, stream);
         default:
             return (int)cudaErrorInvalidValue;
     }
@@ -918,13 +1259,11 @@ extern "C" int sp_closest_blocks_per_sm(int* blocks) {
         blocks, traverse_kernel<false, false>, BLOCK, 0);
 }
 
-// blocks of sp_visit_body's mode resident on one SM at once
-extern "C" int sp_visit_body_blocks_per_sm(int mode, int* blocks) {
-    switch (mode) {
-        case BODY_INTERNAL: return body_blocks_per_sm<BODY_INTERNAL>(blocks);
-        case BODY_NOREL: return body_blocks_per_sm<BODY_NOREL>(blocks);
-        case BODY_SORT: return body_blocks_per_sm<BODY_SORT>(blocks);
-        case BODY_LEAF: return body_blocks_per_sm<BODY_LEAF>(blocks);
+// blocks of sp_visit_body's mode and layout resident on one SM at once
+extern "C" int sp_visit_body_blocks_per_sm(int mode, int layout, int* blocks) {
+    switch (layout) {
+        case LAYOUT_LANE: return body_mode_blocks_per_sm<LAYOUT_LANE>(mode, blocks);
+        case LAYOUT_GROUP: return body_mode_blocks_per_sm<LAYOUT_GROUP>(mode, blocks);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -13,8 +13,13 @@ package's ``tools/`` probes, each wrapper with its plain PyTorch version.
   hold;
 * :func:`visit_body` ← ``tools/prof_visit_vpu.py::make_kernel``: M
   back-to-back visit bodies on rows held in shared memory, for one fixed
-  ray, in four modes (:data:`BODY_MODES`); :func:`visit_body_lanes` is its
-  check launch, which also gives what each lane holds after the last body.
+  ray, in four modes (:data:`BODY_MODES`) and two layouts of the same
+  function (:data:`BODY_LAYOUTS`): ``"lane"`` (the default), one thread a
+  ray with the row broadcast from shared memory and the Batcher network in
+  registers, the TPU kernel's own layout; ``"group"``, the traversal's
+  visit, W lanes a ray through ``sp_closest``'s device functions;
+  :func:`visit_body_lanes` is its check launch, which also gives what each
+  of a ray's W lanes holds after the last body.
 
 The kernels (``sp_closest_count``, ``sp_row_chase``, ``sp_visit_body``) live
 in ``csrc/traverse.cu`` beside the traversal kernels whose device functions
@@ -47,13 +52,18 @@ from . import cuda_traverse as ct
 __all__ = ["closest_count", "closest_count_plain", "row_chase",
            "row_chase_plain", "visit_body", "visit_body_plain",
            "visit_body_lanes", "visit_body_lanes_plain", "crossed_table",
-           "cycle_table", "body_blocks_per_sm", "closest_blocks_per_sm",
-           "launch_counts", "reset_launch_counts", "BODY_MODES", "CHAINS",
-           "FEEDS"]
+           "cycle_table", "body_blocks_per_sm", "body_rays_per_block",
+           "closest_blocks_per_sm", "launch_counts", "reset_launch_counts",
+           "BODY_MODES", "BODY_LAYOUTS", "CHAINS", "FEEDS"]
 
 # the visit-body probe's modes, in the kernel's numbering (csrc/traverse.cu
 # BodyMode)
 BODY_MODES = ("internal", "internal_norel", "sort_only", "leaf")
+# the visit body's layouts, in the kernel's numbering (csrc/traverse.cu
+# BodyLayout): one thread a ray, or the traversal's W lanes a ray
+BODY_LAYOUTS = ("lane", "group")
+# threads a block of the visit body (csrc/traverse.cu BLOCK)
+BODY_BLOCK = 128
 # chains one warp runs in sp_row_chase
 CHAINS = (1, 2, 4, 8)
 # sp_row_chase's row feeds, in the kernel's numbering (csrc/traverse.cu
@@ -63,7 +73,8 @@ FEEDS = ("bulk", "ldg")
 MAX_CYCLE_ROWS = 2 ** 24
 
 # launches per kernel: +1 exactly where a wrapper launches its kernel
-launch_counts = {"closest_count": 0, "row_chase": 0, "visit_body": 0}
+launch_counts = {"closest_count": 0, "row_chase": 0,
+                 **{f"visit_body_{layout}": 0 for layout in BODY_LAYOUTS}}
 
 _bound = None
 
@@ -84,9 +95,9 @@ def _library():
         lib.sp_row_chase.restype = i
         lib.sp_row_chase.argtypes = [p, i, i, i, i, p, p]
         lib.sp_visit_body.restype = i
-        lib.sp_visit_body.argtypes = [p, i, f, i, i, i, p, p, p]
+        lib.sp_visit_body.argtypes = [p, i, f, i, i, i, i, p, p, p]
         lib.sp_visit_body_blocks_per_sm.restype = i
-        lib.sp_visit_body_blocks_per_sm.argtypes = [i, ctypes.POINTER(i)]
+        lib.sp_visit_body_blocks_per_sm.argtypes = [i, i, ctypes.POINTER(i)]
         lib.sp_closest_blocks_per_sm.restype = i
         lib.sp_closest_blocks_per_sm.argtypes = [ctypes.POINTER(i)]
         _bound = lib
@@ -244,9 +255,16 @@ def _body_rows(records: Tensor, seed: float) -> int:
     return first
 
 
+def _check_layout(layout: str) -> None:
+    if layout not in BODY_LAYOUTS:
+        raise ValueError(f"layout must be one of {BODY_LAYOUTS}, got "
+                         f"{layout!r}")
+
+
 def _check_body(records: Tensor, seed: float, mode: str, bodies: int,
-                n: int) -> int:
+                n: int, layout: str) -> int:
     _check_records(records)
+    _check_layout(layout)
     if mode not in BODY_MODES:
         raise ValueError(f"mode must be one of {BODY_MODES}, got {mode!r}")
     if bodies < 0 or n < 0:
@@ -255,7 +273,7 @@ def _check_body(records: Tensor, seed: float, mode: str, bodies: int,
 
 
 def _launch_body(records: Tensor, seed: float, mode: str, bodies: int, n: int,
-                 first: int, check: bool):
+                 first: int, check: bool, layout: str):
     ct._check_kernel_layout(records=records)
     dev = records.device
     out = torch.empty(n, dtype=torch.float32, device=dev)
@@ -266,17 +284,18 @@ def _launch_body(records: Tensor, seed: float, mode: str, bodies: int, n: int,
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.sp_visit_body(records.data_ptr(), first, float(seed),
-                                BODY_MODES.index(mode), bodies, n,
+                                BODY_MODES.index(mode),
+                                BODY_LAYOUTS.index(layout), bodies, n,
                                 out.data_ptr(),
                                 lanes.data_ptr() if check else None,
                                 _stream(dev))
-    launch_counts["visit_body"] += 1
+    launch_counts[f"visit_body_{layout}"] += 1
     ct._raise_on(err, "sp_visit_body")
     return out, lanes
 
 
 def visit_body(records: Tensor, seed: float, mode: str, bodies: int,
-               n: int) -> Tensor:
+               n: int, layout: str = "lane") -> Tensor:
     """``bodies`` back-to-back visit bodies of ``mode`` for the probe's fixed
     ray (origin (0.1 + 1e-6 seed, 2, 5), inverse direction (3, -7, 2)) on rows |seed| - 1 (the internal modes) and |seed|
     (``leaf``), for ``n`` copies of the ray; each body's result is the next
@@ -284,16 +303,19 @@ def visit_body(records: Tensor, seed: float, mode: str, bodies: int,
     value: ``internal`` NaN where a child of the row is not hit, else inf;
     ``internal_norel`` and ``sort_only`` inf unless the row holds an
     infinite box; ``leaf`` the nearest hit t of the row's K triangles (all
-    of them live), or inf."""
-    first = _check_body(records, seed, mode, bodies, n)
+    of them live), or inf.  ``layout`` (:data:`BODY_LAYOUTS`) picks the
+    kernel instance on a CUDA tensor; both compute this function, so on a
+    CPU tensor either gives the plain version."""
+    first = _check_body(records, seed, mode, bodies, n, layout)
     records = records.detach()
     if not _on_kernel(records):
         return visit_body_plain(records, seed, mode, bodies, n)
-    return _launch_body(records, seed, mode, bodies, n, first, False)[0]
+    return _launch_body(records, seed, mode, bodies, n, first, False,
+                        layout)[0]
 
 
 def visit_body_lanes(records: Tensor, seed: float, mode: str, bodies: int,
-                     n: int) -> tuple[Tensor, Tensor]:
+                     n: int, layout: str = "lane") -> tuple[Tensor, Tensor]:
     """The check launch of :func:`visit_body` (``bodies`` >= 1): its output
     and what each of a ray's LANES_PER_RAY lanes holds after the last body,
     float32[n, LANES_PER_RAY, 4]:
@@ -306,24 +328,35 @@ def visit_body_lanes(records: Tensor, seed: float, mode: str, bodies: int,
       c, c + W, ..., and the group's first minimum (t, slot).
 
     Keys and refs are the row's values, so a body that was skipped or wrong
-    shows where the TPU probe's NaN / inf output cannot."""
-    first = _check_body(records, seed, mode, bodies, n)
+    shows where the TPU probe's NaN / inf output cannot.  Both layouts
+    write these lanes: in the lane layout one thread writes all of its
+    ray's."""
+    first = _check_body(records, seed, mode, bodies, n, layout)
     if bodies < 1:
         raise ValueError(f"a check launch runs at least one body, got {bodies}")
     records = records.detach()
     if not _on_kernel(records):
         return visit_body_lanes_plain(records, seed, mode, bodies, n)
-    return _launch_body(records, seed, mode, bodies, n, first, True)
+    return _launch_body(records, seed, mode, bodies, n, first, True, layout)
 
 
-def body_blocks_per_sm(mode: str) -> int:
-    """Blocks of the visit body's ``mode`` that one SM holds at once (the
-    CUDA occupancy calculator): a launch of that many blocks a SM fills the
-    card in one wave."""
+def body_blocks_per_sm(mode: str, layout: str = "lane") -> int:
+    """Blocks of the visit body's ``mode`` and ``layout`` that one SM
+    holds at once (the CUDA occupancy calculator): a launch of that many
+    blocks a SM fills the card in one wave."""
+    _check_layout(layout)
     blocks = ctypes.c_int(0)
     ct._raise_on(_library().sp_visit_body_blocks_per_sm(
-        BODY_MODES.index(mode), ctypes.byref(blocks)), "occupancy query")
+        BODY_MODES.index(mode), BODY_LAYOUTS.index(layout),
+        ctypes.byref(blocks)), "occupancy query")
     return blocks.value
+
+
+def body_rays_per_block(layout: str = "lane") -> int:
+    """Rays a block of the visit body's ``layout`` holds: one a thread, or
+    one a group of W lanes."""
+    _check_layout(layout)
+    return BODY_BLOCK if layout == "lane" else BODY_BLOCK // ct.LANES_PER_RAY
 
 
 def closest_blocks_per_sm() -> int:
@@ -336,14 +369,17 @@ def closest_blocks_per_sm() -> int:
     return blocks.value
 
 
-def crossed_table(tie: bool = True, seed: int = 4, device=None) -> Tensor:
+def crossed_table(tie: bool = True, seed: int = 4, device=None,
+                  miss: bool = False) -> Tensor:
     """A table of 1 + LEAF_ROWS rows that the fixed ray at seed 1 crosses,
     made with numpy from ``seed``: an internal row whose W child boxes
     (refs 2..W+1) all lie on the ray, boxes 1 and 3 equal where ``tie`` (so
-    that two keys tie and the network runs), and a leaf of K triangles
-    centred on the ray at random distances, every other one moved off it.
-    The fixed ray misses every row of the bench's table and of g_blob's;
-    here each mode computes values a wrong or skipped body would not."""
+    that two keys tie and the network runs), box 0 moved off the ray where
+    ``miss`` (a missed child, which the network moves to the last place),
+    and a leaf of K triangles centred on the ray at random distances, every
+    other one moved off it.  The fixed ray misses every row of the bench's
+    table and of g_blob's; here each mode computes values a wrong or
+    skipped body would not."""
     rs = np.random.RandomState(seed)
     W, K = WIDTH, LEAF_SIZE
     f = np.float32
@@ -354,6 +390,8 @@ def crossed_table(tie: bool = True, seed: int = 4, device=None) -> Tensor:
     if tie:
         ts[3] = ts[1]
     centre = o + ts[:, None] * d
+    if miss:
+        centre[0, 1] += 3.0
     half = 0.1 + 0.3 * rs.rand(W, 3)
     if tie:
         half[3] = half[1]

@@ -519,22 +519,10 @@ def test_counting_is_off_in_the_traversal_instances(source):
     assert not re.search(r"\b(n_internal|n_leaf|by_push)\b", rest)
 
 
-def test_the_visit_body_checks_only_in_its_check_launch(source):
-    """sp_visit_body runs the CHECK instance only where a lanes buffer is
-    given, the occupancy is read off the timed instance, and what CHECK
-    adds to the kernel sits under `if constexpr`; the traversal's occupancy
-    is read off sp_closest's instance."""
-    launch = source[source.index("int launch_body("):
-                    source.index("int body_blocks_per_sm(")]
-    assert re.search(r"if \(lanes\)\s*visit_body_kernel<MODE, true>", launch)
-    assert re.search(r"else\s*visit_body_kernel<MODE, false><<<[^;]*nullptr\);",
-                     launch)
-    assert "visit_body_kernel<MODE, false>, BLOCK, 0);" in source
-    assert "traverse_kernel<false, false>, BLOCK, 0);" in _entry_point(
-        source, "sp_closest_blocks_per_sm")
-    kernel = source[source.index("visit_body_kernel(const float*"):
-                    source.index("int launch_body(")]
-    rest = re.sub(r"//.*", "", kernel)
+def _drop_check_blocks(code):
+    """``code`` without its comments and its `if constexpr (CHECK) {...}`
+    blocks."""
+    rest = re.sub(r"//.*", "", code)
     while "if constexpr (CHECK) {" in rest:       # drop each braced block
         i = rest.index("if constexpr (CHECK) {")
         depth, j = 0, rest.index("{", i)
@@ -544,9 +532,44 @@ def test_the_visit_body_checks_only_in_its_check_launch(source):
                 break
             j += 1
         rest = rest[:i] + rest[j + 1:]
-    rest = re.sub(r"float w0 = 0.0f.*\n\s*int w_place = 0;", "", rest)
-    assert not re.search(r"\b(w0|w1|w2|w3|w_place|lanes)\b",
-                         rest.split(")", 1)[1].split("{", 1)[1])
+    return rest
+
+
+def test_the_visit_body_checks_only_in_its_check_launch(source):
+    """sp_visit_body runs the CHECK instance only where a lanes buffer is
+    given, in either layout; the occupancy is read off the timed instance;
+    the kernel hands the lanes buffer to the layouts' bodies, and what CHECK
+    adds to each sits under `if constexpr`; the traversal's occupancy is
+    read off sp_closest's instance."""
+    launch = source[source.index("int launch_body("):
+                    source.index("int body_blocks_per_sm(")]
+    assert re.search(r"if \(lanes\)\s*visit_body_kernel<LAYOUT, MODE, true>",
+                     launch)
+    assert re.search(
+        r"else\s*visit_body_kernel<LAYOUT, MODE, false><<<[^;]*nullptr\);",
+        launch)
+    assert "visit_body_kernel<LAYOUT, MODE, false>, BLOCK, 0);" in source
+    assert "traverse_kernel<false, false>, BLOCK, 0);" in _entry_point(
+        source, "sp_closest_blocks_per_sm")
+    kernel = source[source.index("visit_body_kernel(const float*"):
+                    source.index("int launch_body(")]
+    body = _drop_check_blocks(kernel).split(")", 1)[1].split("{", 1)[1]
+    assert re.findall(r"\blanes\b", body) == ["lanes", "lanes"]
+    assert re.search(r"lane_bodies<MODE, CHECK>\([^;]*, lanes\);", body)
+    assert re.search(r"group_bodies<MODE, CHECK>\([^;]*, lanes\);", body)
+    # what each layout keeps for its check launch, declared ahead of its loop
+    check_state = {
+        "group_bodies(": (r"float w0 = 0.0f.*\n\s*int w_place = 0;",
+                          r"\b(w0|w1|w2|w3|w_place|lanes)\b"),
+        "lane_bodies(": (r"float best_t\[G\], win_t = INFINITY;\n\s*"
+                         r"int best_k\[G\], win_k = 0;",
+                         r"\b(best_t|best_k|win_t|win_k|lanes)\b")}
+    for fn, (decl, names) in check_state.items():
+        start = source.index(fn + "const float")
+        code = source[start:source.index("\n}\n", start)]
+        rest, n_decl = re.subn(decl, "", _drop_check_blocks(code))
+        assert n_decl == 1, fn
+        assert not re.search(names, rest.split(")", 1)[1].split("{", 1)[1]), fn
 
 
 @pytest.mark.parametrize("bad", ["bodies", "mode", "rays"])

@@ -238,5 +238,5 @@ def test_probe_wrappers_take_the_plain_versions_on_cpu_tensors(scenes):
     assert torch.equal(cp.row_chase(ts.bvh.records, 2, 9),
                        cp.row_chase_plain(ts.bvh.records, 2, 9))
     assert cp.launch_counts == {"closest_count": 0, "row_chase": 0,
-                                "visit_body": 0}
+                                "visit_body_lane": 0, "visit_body_group": 0}
     assert ct.launch_counts == {"closest": 0, "anyhit": 0}
