@@ -29,7 +29,11 @@ uninterrupted render.  ``--geom-shards N`` builds the BVH as a forest of N
 sub-BVHs on the render device (``parallel/geom_shard.py``; the forest is
 cached beside the scene) and renders through it, progressive and
 checkpointed passes included.  ``--profile DIR`` writes a
-``torch.profiler`` trace.
+``torch.profiler`` trace.  ``--stats`` and ``--profile`` turn the port's
+tracing on for the load and the render (``tracing.py``): ``--stats`` reads
+its load and render seconds from the ``load`` and ``frame`` spans and
+prints every span and counter, and the profiler's trace holds the ``sp.*``
+spans around the kernels they launched.
 
 Launched as several ranks (``WORLD_SIZE`` > 1 in the environment, as
 ``torchrun`` sets it), every rank joins the process group
@@ -55,7 +59,6 @@ import glob
 import logging
 import os
 import sys
-import time
 from datetime import timedelta
 
 from .scene.types import INTEGRATORS
@@ -168,10 +171,11 @@ def _run(ap, args, ranks) -> int:
     import numpy as np
     import torch
 
+    from . import tracing
     from .core.rng import prng_key
     from .device import resolve_device
     from .io.pfm import write_image
-    from .utils import format_hms
+    from .utils import Stopwatch
 
     lead = ranks is None or ranks.rank == 0
     device = ranks.device if ranks else resolve_device(args.platform)
@@ -183,47 +187,47 @@ def _run(ap, args, ranks) -> int:
         except ValueError as e:
             ap.error(str(e))
 
-    t0 = time.time()
-    text = None
-    if args.scene == "-":               # rank 0 reads it, and sends it on
-        text = [sys.stdin.read() if lead else None]
-        if ranks is not None:
-            import torch.distributed as dist
-            dist.broadcast_object_list(text, src=0, group=ranks.coord)
-        text = text[0]
-    if ranks is None:
-        scene, out_dir = _load(ap, args, device, geom_mesh, text)
-        t_load = time.time() - t0
-    else:
-        from .parallel.multihost import rank_zero_first
-        with rank_zero_first(ranks.coord, LOAD_TIMEOUT):
-            t1 = time.time()            # this rank's own load, not its wait
-            if lead and device.type == "cuda":
-                from .render import cuda_traverse
-                cuda_traverse.build_library()   # once, before the others
+    watch = Stopwatch()                 # the whole run: "Elapsed time"
+    traced = (tracing.recording() if args.stats or args.profile
+              else contextlib.nullcontext())
+    with traced as rec:
+        text = None
+        if args.scene == "-":           # rank 0 reads it, and sends it on
+            text = [sys.stdin.read() if lead else None]
+            if ranks is not None:
+                import torch.distributed as dist
+                dist.broadcast_object_list(text, src=0, group=ranks.coord)
+            text = text[0]
+        if ranks is None:
             scene, out_dir = _load(ap, args, device, geom_mesh, text)
-            t_load = time.time() - t1
-    t_parse = time.time() - t0
+        else:
+            from .parallel.multihost import rank_zero_first
+            with rank_zero_first(ranks.coord, LOAD_TIMEOUT):
+                if lead and device.type == "cuda":
+                    from .render import cuda_traverse
+                    cuda_traverse.build_library()   # once, before the others
+                scene, out_dir = _load(ap, args, device, geom_mesh, text)
 
-    prof = contextlib.nullcontext()
-    if args.profile:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-
-    t0 = time.time()
-    with prof:
-        img = _render(args, scene, prng_key(args.seed, device), device,
-                      ranks)
-        img = img.cpu().numpy()         # waits for the device
-    t_render = time.time() - t0
+        prof = contextlib.nullcontext()
+        if args.profile:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+        with prof:
+            img = _render(args, scene, prng_key(args.seed, device), device,
+                          ranks)
+            img = img.cpu().numpy()     # waits for the device
+    watch.stop()
+    summary = rec.summary() if rec is not None else None
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         name = "trace.json" if ranks is None else f"trace_rank{ranks.rank}.json"
         prof.export_chrome_trace(os.path.join(args.profile, name))
 
-    devices = _device_stats(device, ranks, t_load) if args.stats else None
+    seconds = lambda name: summary["spans"].get(name, {}).get("total_s", 0.0)
+    # this rank's own load (not its wait for rank 0), from its load span
+    devices = _device_stats(device, ranks, seconds("load")) if args.stats else None
     if not lead:
         return 0
     out = args.output or os.path.join(out_dir, scene.static.output_file_name)
@@ -233,9 +237,10 @@ def _run(ap, args, ranks) -> int:
     print(f"Wrote {out}")
     if args.profile:
         print(f"Profiler trace written to {args.profile}")
-    print(f"Elapsed time: {format_hms(t_parse + t_render)}")
+    print(f"Elapsed time: {watch}")
     if args.stats:
-        print(f"parse: {t_parse:.2f}s  render: {t_render:.2f}s  "
+        t_render = seconds(tracing.FRAME)
+        print(f"parse: {seconds('load'):.2f}s  render: {t_render:.2f}s  "
               f"primary rays/s: {rays / max(t_render, 1e-9):,.0f}")
         print(f"world: {1 if ranks is None else ranks.world}  backend: "
               f"{'none' if ranks is None else ranks.backend}")
@@ -243,26 +248,34 @@ def _run(ap, args, ranks) -> int:
             print(f"rank {r}: {name}  peak device memory: "
                   + ("n/a" if peak is None else f"{peak} B")
                   + f"  load: {load_s:.2f}s")
+        _print_summary(summary)
     return 0
+
+
+def _print_summary(summary: dict) -> None:
+    """This rank's spans (count, total and self seconds) and counters."""
+    print("span                     count    total s     self s")
+    for name, row in sorted(summary["spans"].items(),
+                            key=lambda kv: -kv[1]["total_s"]):
+        print(f"{name:<24} {row['count']:>5} {row['total_s']:>10.4f} "
+              f"{row['self_s']:>10.4f}")
+    for name, n in sorted(summary["counters"].items()):
+        print(f"counter {name}: {n:,}")
 
 
 def _load(ap, args, device, geom_mesh, text):
     """The scene on ``device`` → (scene, directory of its output).  From
     the file, or from ``text`` for a scene given on stdin; with a geometry
     mesh, as its forest (kept in the scene directory's cache)."""
-    from .scene.build import build_scene, load_scene
-    from .scene.parser import parse_sp
+    from .scene.build import load_scene
 
     use_bvh = False if geom_mesh is not None else None  # the forest replaces it
-    if args.scene == "-":
-        scene = build_scene(parse_sp(text),
-                            cli_integrator=args.integrator, use_bvh=use_bvh,
-                            device=device)
-        out_dir = os.getcwd()
-    else:
-        scene = load_scene(args.scene, cli_integrator=args.integrator,
-                           use_bvh=use_bvh, device=device)
-        out_dir = os.path.dirname(os.path.abspath(args.scene))
+    # load_scene parses a path or the scene's text alike
+    scene = load_scene(args.scene if text is None else text,
+                       cli_integrator=args.integrator, use_bvh=use_bvh,
+                       device=device)
+    out_dir = (os.getcwd() if args.scene == "-"
+               else os.path.dirname(os.path.abspath(args.scene)))
     if geom_mesh is not None:
         from .parallel.geom_shard import shard_scene_geometry
         try:

@@ -28,6 +28,7 @@ from typing import Any, NamedTuple
 import torch
 from torch import Tensor
 
+from .. import tracing
 from ..render.film import render_rays
 from ..scene.types import Scene
 
@@ -103,14 +104,22 @@ def render_loss_and_grad(scene: Scene, params: dict[str, Tensor],
     """(loss, gradient of the loss for every parameter), the pair
     ``jax.value_and_grad(render_loss)`` gives.  A parameter the render does
     not reach gets a zero gradient.  ``leaves`` (default: every key) names
-    the parameters to differentiate; only they get a gradient."""
+    the parameters to differentiate; only they get a gradient.  While
+    tracing is on, the forward is a ``train.forward`` span ending in
+    ``wait.forward`` and the gradient a ``train.backward`` span ending in
+    ``wait.backward``; the bounces that autograd recomputes open their spans
+    inside the latter."""
     names = list(params) if leaves is None else list(leaves)
     inputs = {k: v.detach().requires_grad_(k in names)
               for k, v in params.items()}
-    loss = render_loss(scene, inputs, target_flat, xs, ys, spp, key,
-                       integrator, device)
-    grads = torch.autograd.grad(loss, [inputs[k] for k in names],
-                                allow_unused=True)
+    with tracing.span("train.forward"):
+        loss = render_loss(scene, inputs, target_flat, xs, ys, spp, key,
+                           integrator, device)
+        tracing.wait("forward", loss.device)
+    with tracing.span("train.backward"):
+        grads = torch.autograd.grad(loss, [inputs[k] for k in names],
+                                    allow_unused=True)
+        tracing.wait("backward", loss.device)
     return loss.detach(), {
         k: torch.zeros_like(inputs[k]) if g is None else g
         for k, g in zip(names, grads)}
@@ -136,15 +145,17 @@ def make_train_step(scene: Scene, spp: int, integrator: str | None = None,
     and the near-mirror plane's roughness (0.01) gets a correct but steep
     gradient, so one step moves it to ~0.04, far outside its linear range.
     The tested use there is ``leaves=("mat_albedo",)`` at the default
-    rate."""
+    rate.  While tracing is on, a step is a ``train.step`` span, the update
+    a ``train.update`` span inside it."""
 
     def step(params, target_flat, xs, ys, key):
-        loss, grads = render_loss_and_grad(scene, params, target_flat, xs, ys,
-                                           spp, key, integrator, device,
-                                           leaves)
-        with torch.no_grad():
-            new_params = {k: p.detach() - lr * grads[k] if k in grads
-                          else p.detach() for k, p in params.items()}
+        with tracing.span("train.step"):
+            loss, grads = render_loss_and_grad(scene, params, target_flat, xs,
+                                               ys, spp, key, integrator, device,
+                                               leaves)
+            with tracing.span("train.update"), torch.no_grad():
+                new_params = {k: p.detach() - lr * grads[k] if k in grads
+                              else p.detach() for k, p in params.items()}
         return new_params, loss
 
     return step

@@ -17,6 +17,8 @@ import time
 
 import numpy as np
 
+from .. import tracing
+
 logger = logging.getLogger("simplepath_tpu_torch")
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -37,6 +39,7 @@ def _compile() -> str | None:
         os.makedirs(BUILD_DIR, exist_ok=True)
         cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
                _SRC, "-o", tmp]
+        tracing.count("library.builds")
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         os.replace(tmp, _SO_PATH)
         logger.info("native BVH builder built: %s (%.1f s)", _SO_PATH,
@@ -48,14 +51,16 @@ def _compile() -> str | None:
 
 
 def get_lib():
-    """Load (compiling if needed) the native library, or None."""
+    """Load (compiling if needed) the native library, or None; the first
+    call is a ``library`` span (``built``: whether it ran g++)."""
     global _lib, _lib_tried
     if _lib_tried:
         return _lib
     _lib_tried = True
     stale = (not os.path.exists(_SO_PATH)
              or os.path.getmtime(_SO_PATH) < os.path.getmtime(_SRC))
-    path = _compile() if stale else _SO_PATH
+    with tracing.span("library", lib="native", built=stale):
+        path = _compile() if stale else _SO_PATH
     if path is None:
         return None
     try:

@@ -22,6 +22,7 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
+from .. import tracing
 from ..device import resolve_device
 from ..render.film import render_rays
 from ..scene.types import Scene
@@ -140,7 +141,8 @@ def render_image_sharded(scene: Scene, spp: int, key: Tensor,
     dropped, as in the JAX package.  ``spp_offset`` renders absolute sample
     indices [offset, offset+spp) — see ``render_rays``.  ``device=None``
     means CUDA and raises without one.  Over several ranks see
-    ``multihost.render_image_multihost``."""
+    ``multihost.render_image_multihost``.  The render is a ``frame`` span
+    that ends in ``wait.frame`` (while tracing is on)."""
     device = resolve_device(device)
     h, w = scene.static.height, scene.static.width
     ys_g, xs_g = torch.meshgrid(torch.arange(h, device=device),
@@ -154,12 +156,15 @@ def render_image_sharded(scene: Scene, spp: int, key: Tensor,
         return render_rays(scene, xs, ys, spp, key, integrator,
                            spp_offset=spp_offset, device=device)
 
-    if n <= chunk:
-        return render_chunk(xs_all, ys_all).reshape(h, w, 3)
-
-    n_pad = pad_to_multiple(n, chunk)
-    xs_all = torch.nn.functional.pad(xs_all, (0, n_pad - n))
-    ys_all = torch.nn.functional.pad(ys_all, (0, n_pad - n))
-    out = [render_chunk(xs_all[c0:c0 + chunk], ys_all[c0:c0 + chunk])
-           for c0 in range(0, n_pad, chunk)]
-    return torch.cat(out, dim=0)[:n].reshape(h, w, 3)
+    with tracing.span(tracing.FRAME):
+        if n <= chunk:
+            img = render_chunk(xs_all, ys_all).reshape(h, w, 3)
+        else:
+            n_pad = pad_to_multiple(n, chunk)
+            xs_all = torch.nn.functional.pad(xs_all, (0, n_pad - n))
+            ys_all = torch.nn.functional.pad(ys_all, (0, n_pad - n))
+            out = [render_chunk(xs_all[c0:c0 + chunk], ys_all[c0:c0 + chunk])
+                   for c0 in range(0, n_pad, chunk)]
+            img = torch.cat(out, dim=0)[:n].reshape(h, w, 3)
+        tracing.wait("frame", device)
+    return img

@@ -38,6 +38,7 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
+from .. import tracing
 from ..device import resolve_device
 from ..render.film import render_rays
 from ..scene.types import Scene
@@ -230,7 +231,12 @@ def render_image_multihost(scene: Scene, spp: int, key: Tensor,
     resolution.  The padding follows the JAX package: a frame that fits in
     one chunk is padded to a multiple of the world size, a larger one to
     whole chunks.  ``spp_offset`` renders absolute sample indices
-    [offset, offset+spp), so progressive passes compose exactly."""
+    [offset, offset+spp), so progressive passes compose exactly.
+
+    While tracing is on, the render is a ``frame`` span ending in
+    ``wait.frame``; each rank's render of a chunk is a ``rank_render`` span
+    ending in ``wait.rank`` (its own device time), and each gather a
+    ``gather`` span ending in ``wait.gather``."""
     mesh = mesh or make_ray_mesh(device=device)
     h, w = scene.static.height, scene.static.width
     lin = torch.arange(h * w)
@@ -241,12 +247,20 @@ def render_image_multihost(scene: Scene, spp: int, key: Tensor,
     xs_all = torch.nn.functional.pad(xs_all, (0, n_pad - n))
     ys_all = torch.nn.functional.pad(ys_all, (0, n_pad - n))
 
-    pieces = []
-    for c0 in range(0, n_pad, chunk):
-        xs, ys, _ = shard_pixels(mesh, xs_all[c0:c0 + chunk],
-                                 ys_all[c0:c0 + chunk])
-        flat = render_rays(scene, xs, ys, spp, key, integrator,
-                           spp_offset=spp_offset, device=mesh.device)
-        pieces.append(all_gather_cat(flat, mesh.group) if mesh.world > 1
-                      else flat)
-    return torch.cat(pieces, dim=0)[:n].reshape(h, w, 3)
+    with tracing.span(tracing.FRAME):
+        pieces = []
+        for c0 in range(0, n_pad, chunk):
+            xs, ys, _ = shard_pixels(mesh, xs_all[c0:c0 + chunk],
+                                     ys_all[c0:c0 + chunk])
+            with tracing.span("rank_render"):
+                flat = render_rays(scene, xs, ys, spp, key, integrator,
+                                   spp_offset=spp_offset, device=mesh.device)
+                tracing.wait("rank", mesh.device)
+            if mesh.world > 1:
+                with tracing.span("gather"):
+                    flat = all_gather_cat(flat, mesh.group)
+                    tracing.wait("gather", mesh.device)
+            pieces.append(flat)
+        img = torch.cat(pieces, dim=0)[:n].reshape(h, w, 3)
+        tracing.wait("frame", mesh.device)
+    return img

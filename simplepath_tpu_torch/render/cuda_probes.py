@@ -45,6 +45,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from .. import tracing
 from ..device import resolve_device
 from ..scene.bvh import LEAF_ROWS, LEAF_SIZE, RECORD_WIDTH, WIDTH
 from . import cuda_traverse as ct
@@ -72,9 +73,11 @@ FEEDS = ("bulk", "ldg")
 # refs are float32: every integer up to 2**24 is exact
 MAX_CYCLE_ROWS = 2 ** 24
 
-# launches per kernel: +1 exactly where a wrapper launches its kernel
-launch_counts = {"closest_count": 0, "row_chase": 0,
-                 **{f"visit_body_{layout}": 0 for layout in BODY_LAYOUTS}}
+# launches per kernel: +1 exactly where a wrapper launches its kernel; the
+# tracing registry's group "launches.probes"
+launch_counts = tracing.register("launches.probes", {
+    "closest_count": 0, "row_chase": 0,
+    **{f"visit_body_{layout}": 0 for layout in BODY_LAYOUTS}})
 
 _bound = None
 

@@ -46,6 +46,7 @@ import time
 import torch
 from torch import Tensor
 
+from .. import tracing
 from ..scene.bvh import LEAF_ROWS, LEAF_SIZE, RECORD_WIDTH, WIDTH
 
 logger = logging.getLogger("simplepath_tpu_torch")
@@ -95,8 +96,10 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-# launches per kernel: +1 exactly where a wrapper launches its kernel
-launch_counts = {"closest": 0, "anyhit": 0}
+# launches per kernel: +1 exactly where a wrapper launches its kernel; the
+# tracing registry's group "launches.traverse"
+launch_counts = tracing.register("launches.traverse",
+                                 {"closest": 0, "anyhit": 0})
 
 _lib = None
 _force_plain = False
@@ -174,15 +177,20 @@ def build_library(verbose: bool = False) -> str:
     into ``build/`` unless an up-to-date library is there; returns its path.
     Raises if nvcc fails."""
     path = library_path()
-    if (os.path.exists(path)
-            and os.path.getmtime(path) >= os.path.getmtime(KERNEL_SOURCE)):
+    if not _stale(path):
         return path
+    tracing.count("library.builds")
     t0 = time.time()
     log = _compile_source(KERNEL_SOURCE, path, verbose=verbose)
     logger.info("traversal library built: %s (%.1f s)", path, time.time() - t0)
     if verbose:
         print(log)
     return path
+
+
+def _stale(path: str) -> bool:
+    return (not os.path.exists(path)
+            or os.path.getmtime(path) < os.path.getmtime(KERNEL_SOURCE))
 
 
 def _bind_library(path: str):
@@ -197,9 +205,13 @@ def _bind_library(path: str):
 
 
 def _library():
+    """The library, built if stale and bound on first use: a ``library``
+    span (``built``: whether this call ran nvcc)."""
     global _lib
     if _lib is None:
-        _lib = _bind_library(build_library())
+        with tracing.span("library", lib="traverse",
+                          built=_stale(library_path())):
+            _lib = _bind_library(build_library())
     return _lib
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from .. import tracing
 from ..core.rng import fold_in, pixel_jitter
 from ..device import resolve_device
 from ..scene.types import Scene
@@ -67,35 +68,38 @@ def render_rays(scene: Scene, xs: Tensor, ys: Tensor, spp: int, key: Tensor,
     already be there.  Extra keyword arguments go to the integrator
     (``sort=`` for ``iterative_rrnee``).
     """
-    device = resolve_device(device)
-    _check_scene_device(scene, device)
-    scene = with_rho_table(scene)
-    name = integrator or scene.static.integrator
-    fn = make_integrator(name)
-    xs = xs.to(device=device, dtype=torch.int64)
-    ys = ys.to(device=device, dtype=torch.int64)
-    key = key.to(device)
-    n = xs.shape[0]
-    lin = ys * scene.static.width + xs
-    pix_keys = fold_in(key.expand(n, 2), lin)
-    xf, yf = xs.to(torch.float32), ys.to(torch.float32)
-    if name == _STATEFUL:
-        nd = dynamic_rr_buckets(scene)
-        integrator_kwargs["stats"] = (
-            torch.zeros((n, nd), dtype=torch.float32, device=device),
-            torch.zeros((n, nd), dtype=torch.int32, device=device))
-
-    film = torch.zeros((n, 3), dtype=torch.float32, device=device)
-    for s in range(int(spp_offset), int(spp_offset) + spp):
-        jitter = pixel_jitter(xs, ys, torch.full_like(xs, s))
-        pcoords = torch.stack([xf + jitter[:, 0], yf + jitter[:, 1]], dim=-1)
-        ro, rd = generate_ray(scene.camera, pcoords[:, 0], pcoords[:, 1])
-        out = fn(scene, ro, rd, fold_in(pix_keys, s), pcoords=pcoords,
-                 **integrator_kwargs)
+    with tracing.span("chunk"):
+        device = resolve_device(device)
+        _check_scene_device(scene, device)
+        with tracing.span("rho_table"):
+            scene = with_rho_table(scene)
+        name = integrator or scene.static.integrator
+        fn = make_integrator(name)
+        xs = xs.to(device=device, dtype=torch.int64)
+        ys = ys.to(device=device, dtype=torch.int64)
+        key = key.to(device)
+        n = xs.shape[0]
+        lin = ys * scene.static.width + xs
+        pix_keys = fold_in(key.expand(n, 2), lin)
+        xf, yf = xs.to(torch.float32), ys.to(torch.float32)
         if name == _STATEFUL:
-            out, integrator_kwargs["stats"] = out
-        film = film + out
-    return film / spp
+            nd = dynamic_rr_buckets(scene)
+            integrator_kwargs["stats"] = (
+                torch.zeros((n, nd), dtype=torch.float32, device=device),
+                torch.zeros((n, nd), dtype=torch.int32, device=device))
+
+        film = torch.zeros((n, 3), dtype=torch.float32, device=device)
+        for s in range(int(spp_offset), int(spp_offset) + spp):
+            jitter = pixel_jitter(xs, ys, torch.full_like(xs, s))
+            pcoords = torch.stack([xf + jitter[:, 0], yf + jitter[:, 1]],
+                                  dim=-1)
+            ro, rd = generate_ray(scene.camera, pcoords[:, 0], pcoords[:, 1])
+            out = fn(scene, ro, rd, fold_in(pix_keys, s), pcoords=pcoords,
+                     **integrator_kwargs)
+            if name == _STATEFUL:
+                out, integrator_kwargs["stats"] = out
+            film = film + out
+        return film / spp
 
 
 def render_image(scene: Scene, spp: int, key: Tensor,

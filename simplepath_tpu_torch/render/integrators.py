@@ -40,6 +40,7 @@ import torch
 from torch import Tensor
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..core.color import hsv_to_rgb, relative_luminance
 from ..core.onb import onb_from_v, onb_to_local, onb_to_world
 from ..core.rng import fold_in, uniform_sites
@@ -149,7 +150,8 @@ def _estimate_direct_mis_all(scene: Scene, p, nrm, wo_world, onb,
 
     # every light's draw sites in one hash pass: [nl, 4, N, 2]
     sites = [s for li in range(nl) for s in _light_sites(li)]
-    u_all = uniform_sites(keys, sites).reshape(nl, 4, n, 2)
+    with tracing.span("rng"):
+        u_all = uniform_sites(keys, sites).reshape(nl, 4, n, 2)
 
     ls, ls_ok = _light_samples_all(scene, p, nrm, u_all[:, 0])   # [nl, N, ...]
 
@@ -166,10 +168,11 @@ def _estimate_direct_mis_all(scene: Scene, p, nrm, wo_world, onb,
         # return); that gate moves into strat2_ok after the fact — lanes it
         # disables traverse uselessly but contribute nothing, so images are
         # identical while the launch count per bounce halves.
-        ms = _stack_tuples([
-            material_sample(m, wo_local, u_all[li, 1, :, 0], u_all[li, 2, :, 0],
-                            u_all[li, 3])
-            for li in range(nl)])
+        with tracing.span("material_sample"):
+            ms = _stack_tuples([
+                material_sample(m, wo_local, u_all[li, 1, :, 0],
+                                u_all[li, 2, :, 0], u_all[li, 3])
+                for li in range(nl)])
         ms_ok = (ms.pdf > 0.0) & (ms.color != 0.0).any(dim=-1)    # [nl,N]
         wi2 = onb_to_world(onb[None], ms.wi)
         cos2 = torch.abs(dot(wi2, nrm[None]))
@@ -317,15 +320,28 @@ def _bounce_loop(scene: Scene, state: tuple, step, max_depth: int) -> tuple:
     fixed-trip ``fori_loop``).  The recompute is exact: every draw comes from
     threefry keys, none from torch's RNG.  After every lane has died, the
     JAX package's fixed-trip bounces change nothing, so stopping early gives
-    the same values and gradients."""
+    the same values and gradients.
+
+    While tracing is on, the loop's one read of the alive mask is a
+    ``wait.alive`` span that counts the live lanes (``int(alive.sum())``,
+    the same one sync) into ``bounce.live``, and the wavefront's width into
+    ``bounce.lanes``, for each bounce that runs."""
     for depth in range(max_depth):
-        if not bool(state[-1].any()):       # one host sync per bounce
+        if tracing.enabled():
+            with tracing.span("wait.alive"):
+                live = int(state[-1].sum())
+            if not live:
+                break
+            tracing.count("bounce.lanes", state[-1].shape[0])
+            tracing.count("bounce.live", live)
+        elif not bool(state[-1].any()):     # one host sync per bounce
             break
-        if scene.static.differentiable:
-            state = checkpoint(step, depth, state, use_reentrant=False,
-                               preserve_rng_state=False)
-        else:
-            state = step(depth, state)
+        with tracing.span("bounce", depth=depth):
+            if scene.static.differentiable:
+                state = checkpoint(step, depth, state, use_reentrant=False,
+                                   preserve_rng_state=False)
+            else:
+                state = step(depth, state)
     return state
 
 
@@ -356,30 +372,37 @@ def integrate_rrnee(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor, *,
 
     def step(depth: int, state: tuple) -> tuple:
         orig, ro, rd, t_min, throughput, L, alive = state
-        dkeys = fold_in(keys[orig], depth)
-        # sites 0..3 (material layer, lobe, 2D; Russian roulette): one pass
-        u_mat = uniform_sites(dkeys, (SITE_MAT_LAYER, SITE_MAT_LOBE,
-                                      SITE_MAT_2D, SITE_RR))
+        with tracing.span("rng"):
+            dkeys = fold_in(keys[orig], depth)
+            # sites 0..3 (material layer, lobe, 2D; Russian roulette): one pass
+            u_mat = uniform_sites(dkeys, (SITE_MAT_LAYER, SITE_MAT_LOBE,
+                                          SITE_MAT_2D, SITE_RR))
 
         # dead lanes carry a collapsed interval: every intersector, kernel
         # and plain, rejects them without special-casing
-        lhit, ldist, lL = scene_intersect_lights(
-            scene, ro, rd, t_min, torch.where(alive, INF_DISTANCE, neg))
+        with tracing.span("light_hits"):
+            lhit, ldist, lL = scene_intersect_lights(
+                scene, ro, rd, t_min, torch.where(alive, INF_DISTANCE, neg))
         t_max = torch.where(lhit, ldist, INF_DISTANCE)
-        hit = scene_intersect_batch(scene, ro, rd, t_min,
-                                    torch.where(alive, t_max, neg))
+        with tracing.span("closest_hit"):
+            hit = scene_intersect_batch(scene, ro, rd, t_min,
+                                        torch.where(alive, t_max, neg))
 
-        p, nrm, mid = hit_shading(scene, hit, ro, rd)
-        onb = onb_from_v(nrm)
-        wo = -rd
-        wo_local = onb_to_local(onb, wo)
-        m, ms = _sample_batch(scene, mid, wo_local, u_mat)
-        ms_ok = (ms.pdf > 0.0) & (ms.color != 0.0).any(dim=-1)
+        with tracing.span("shading"):
+            p, nrm, mid = hit_shading(scene, hit, ro, rd)
+            onb = onb_from_v(nrm)
+            wo = -rd
+            wo_local = onb_to_local(onb, wo)
+        with tracing.span("material_sample"):
+            m, ms = _sample_batch(scene, mid, wo_local, u_mat)
+            ms_ok = (ms.pdf > 0.0) & (ms.color != 0.0).any(dim=-1)
 
         # NEE over all lights: the whole wavefront's shadow rays traverse in
         # one batched any-hit query; masked lanes collapse their intervals
         nee_mask = alive & hit.valid & ms_ok
-        nee = _estimate_direct_mis_all(scene, p, nrm, wo, onb, m, dkeys, nee_mask)
+        with tracing.span("nee"):
+            nee = _estimate_direct_mis_all(scene, p, nrm, wo, onb, m, dkeys,
+                                           nee_mask)
         L = L + torch.where(nee_mask[:, None], throughput * nee, 0.0)
 
         # throughput update
@@ -407,8 +430,10 @@ def integrate_rrnee(scene: Scene, ro: Tensor, rd: Tensor, keys: Tensor, *,
         if sort:
             # regroup surviving rays (pure permutation of per-lane state —
             # the image is unchanged; see _coherence_order)
-            perm = _coherence_order(continues, out[1], out[2], sort_lo, sort_inv)
-            out = tuple(a[perm] for a in out)
+            with tracing.span("sort"):
+                perm = _coherence_order(continues, out[1], out[2], sort_lo,
+                                        sort_inv)
+                out = tuple(a[perm] for a in out)
         return out
 
     # per-lane state; permuted every bounce by the coherence sort, `orig`

@@ -8,7 +8,8 @@ the triangle soup.  Everything is assembled in numpy on the host and moved
 to ``device`` once at the end (an image-based light's sampling tables with
 it, built once per scene); the materials' rho table is built there, once per
 scene.  The mesh bake and BVH build are served from the persistent geometry
-cache when they can be (``scene/cache.py``).
+cache when they can be (``scene/cache.py``).  While tracing is on, a load
+is a ``load`` span and each of its phases a ``load.*`` span inside it.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ import os
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.distribution import build_distribution_2d
 from ..device import resolve_device
 from ..io.pfm import read_pfm
 from ..render.camera import make_perspective_camera
+from . import cache
 from .bvh import make_packed_records
 from .parser import ParsedScene, parse_sp
 from .ply import bake_mesh, read_ply
@@ -154,8 +157,6 @@ def _build_geometry(mesh_jobs, use_bvh: bool | None) -> dict:
 
     Returns dict(records|None, v0, v1, v2, n0, n1, n2, material_id).
     """
-    from . import cache
-
     cache.LAST_HIT = None
     if not mesh_jobs:
         z = np.zeros((0, 3), np.float32)
@@ -172,7 +173,8 @@ def _build_geometry(mesh_jobs, use_bvh: bool | None) -> dict:
     if use_bvh is False and key is not None:
         key = key + "_bake"
     if key is not None:
-        cached = cache.load_geometry(base_dir, key)
+        with tracing.span("load.cache_read"):
+            cached = cache.load_geometry(base_dir, key)
         if cached is not None:
             if cached["records"].size == 0:
                 cached["records"] = None
@@ -181,8 +183,10 @@ def _build_geometry(mesh_jobs, use_bvh: bool | None) -> dict:
     tri_v, tri_n, tri_m = [], [], []
     for path, linear, translation, mid in mesh_jobs:
         ext = os.path.splitext(path)[1].lower()
-        mesh = read_ply(path) if ext == ".ply" else read_stl(path)
-        mesh = bake_mesh(mesh, linear, translation)
+        with tracing.span("load.mesh_read"):
+            mesh = read_ply(path) if ext == ".ply" else read_stl(path)
+        with tracing.span("load.bake"):
+            mesh = bake_mesh(mesh, linear, translation)
         idx = mesh.indices
         tri_v.append((mesh.vertices[idx[:, 0]], mesh.vertices[idx[:, 1]],
                       mesh.vertices[idx[:, 2]]))
@@ -205,7 +209,8 @@ def _build_geometry(mesh_jobs, use_bvh: bool | None) -> dict:
     if use_bvh and num_tris > 0:
         lo = np.minimum(np.minimum(v0, v1), v2)
         hi = np.maximum(np.maximum(v0, v1), v2)
-        records, order = make_packed_records(lo, hi, v0, v1, v2)
+        with tracing.span("load.bvh"):
+            records, order = make_packed_records(lo, hi, v0, v1, v2)
         v0, v1, v2 = v0[order], v1[order], v2[order]
         n0, n1, n2 = n0[order], n1[order], n2[order]
         tm = tm[order]
@@ -213,9 +218,10 @@ def _build_geometry(mesh_jobs, use_bvh: bool | None) -> dict:
     out = dict(records=records, v0=v0, v1=v1, v2=v2, n0=n0, n1=n1, n2=n2,
                material_id=tm)
     if key is not None and (records is not None or use_bvh is False):
-        cache.save_geometry(base_dir, key, dict(
-            out, records=np.zeros((0, 0), np.float32) if records is None
-            else records))
+        with tracing.span("load.cache_write"):
+            cache.save_geometry(base_dir, key, dict(
+                out, records=np.zeros((0, 0), np.float32) if records is None
+                else records))
     return out
 
 
@@ -256,7 +262,9 @@ def build_scene(ps: ParsedScene, *, cli_integrator: str | None = None,
     spheres = _pack_xform(SphereArrays, sph_x, material_id=_i32(sph_m))
     planes = _pack_xform(PlaneArrays, pl_x, material_id=_i32(pl_m))
 
-    geom = _build_geometry(mesh_jobs, use_bvh)
+    with tracing.span("load.geometry") as sp:
+        geom = _build_geometry(mesh_jobs, use_bvh)
+        sp.set(cache_hit=cache.LAST_HIT is not None)
     num_tris = geom["v0"].shape[0]
     bvh = None
     if geom["records"] is not None:
@@ -307,13 +315,18 @@ def build_scene(ps: ParsedScene, *, cli_integrator: str | None = None,
     scene = Scene(static=static, spheres=spheres, planes=planes,
                   triangles=triangles, bvh=bvh, materials=materials,
                   sphere_lights=sphere_lights, env=env, camera=camera)
-    return scene.to(device)
+    with tracing.span("load.to_device"):
+        return scene.to(device)
 
 
 def load_scene(path, *, cli_integrator: str | None = None,
                use_bvh: bool | None = None, device=None) -> Scene:
-    """Parse a ``.sp`` file and build its Scene on ``device`` (None = CUDA;
-    raises without one — pass ``device="cpu"`` to stay on the CPU)."""
+    """Parse a ``.sp`` file (or a scene's text: ``parse_sp`` takes either)
+    and build its Scene on ``device`` (None = CUDA; raises without one —
+    pass ``device="cpu"`` to stay on the CPU)."""
     device = resolve_device(device)  # fail before the expensive host build
-    return build_scene(parse_sp(path), cli_integrator=cli_integrator,
-                       use_bvh=use_bvh, device=device)
+    with tracing.span("load"):
+        with tracing.span("load.parse"):
+            ps = parse_sp(path)
+        return build_scene(ps, cli_integrator=cli_integrator,
+                           use_bvh=use_bvh, device=device)
