@@ -1,19 +1,29 @@
 """One run of one cell: set-up, the measured window, the trace readings and
 the check against the plain reference; prints the result line.
 
-Set-up writes the configuration's meshes and scene file into the work
-directory (once per checkout), loads the scene through the program, and
-renders one warm pass of the cell's own shape.  The window then renders
-passes back to back, each under a key folded from the seed and the pass
-index, until ``--seconds`` have passed, and ends with a synchronise.  A
+Set-up writes the configuration's meshes, generated files and scene file
+into the work directory (once per checkout), loads the scene through the
+program, and renders one warm pass of the cell's own shape.  The window then
+renders passes back to back, each under a key folded from the seed and the
+pass index, until ``--seconds`` have passed, and ends with a synchronise.  A
 cell over several GPUs is started as users start one, under ``torchrun``
 (``python -m torch.distributed.run --standalone``); its rank 0 writes the
 result, which the starting process prints.
+
+A traced run (``--trace 1``) opens its window with four passes: one that
+records the program's own spans and counters (``readings["trace"]``; over
+several GPUs every rank's, in rank order, in ``readings["ranks_trace"]``),
+as set-up does from before the scene's load through the warm pass
+(``readings["setup_trace"]``), under key 3; then under keys 0, 1 and 2 one
+unprofiled, for its wall; one profiled for the device alone; one profiled
+with the host's ops too, for the breakdown.  A train cell does the same with
+steps, and drops the parameters of the step it records.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -29,6 +39,9 @@ WHOLE_FRAME = "frame"
 BYTES_PER_GB = 1e9
 # the whole of a run over several GPUs, the ranks' first-run builds included
 RANKS_TIMEOUT_S = 1150
+# a traced run's pass (train step) recorded with the program's spans renders
+# under the key after those of its unprofiled and two profiled ones (0-2)
+TRACED_PASS = 3
 
 
 def log(started: float, what: str) -> None:
@@ -68,20 +81,63 @@ def cache_env() -> None:
 
 
 def prepare(cfg: dict) -> tuple[str, str]:
-    """The configuration's meshes and scene file in its work directory →
-    (scene path, mesh directory)."""
+    """The configuration's meshes, generated files and scene file in its
+    work directory → (scene path, mesh directory)."""
     from . import meshgen
 
     d = os.path.join(spec.WORK, cfg["name"])
     os.makedirs(d, exist_ok=True)
-    for fname, mesh in cfg["meshes"].items():
+    for fname, mesh in cfg.get("meshes", {}).items():
         meshgen.write_mesh(mesh, os.path.join(d, fname))
+    for fname, entry in cfg.get("files", {}).items():
+        write_file(entry, os.path.join(d, fname))
     path = os.path.join(d, cfg["scene_file"])
     if not os.path.exists(path) or open(path).read() != cfg["scene_text"]:
         with open(path + ".tmp", "w") as f:
             f.write(cfg["scene_text"])
         os.replace(path + ".tmp", path)
     return path, d
+
+
+def write_file(entry: dict, path: str) -> None:
+    """Write a configuration's generated file (``{"generator", "args",
+    "bytes"}``) to ``path`` by ``generators/<generator>.py``."""
+    write = spec.generator(entry["generator"])
+    _write_sized(path, entry["bytes"], lambda tmp: write(tmp, **entry["args"]),
+                 entry["generator"])
+
+
+def _write_sized(path: str, nbytes: int, writer, what: str) -> None:
+    """``writer(tmp)`` into place at ``path`` unless a file of ``nbytes`` is
+    already there (a checkout's first run writes it; later runs keep it),
+    by ``meshgen.write_mesh``'s rules: written to a file of this process's
+    own, refused at another size, moved into place, so a run cut while
+    writing leaves no partial file behind."""
+    if os.path.exists(path) and os.path.getsize(path) == nbytes:
+        return
+    tmp = f"{path}.{os.getpid()}.tmp"
+    writer(tmp)
+    if os.path.getsize(tmp) != nbytes:
+        os.remove(tmp)
+        raise RuntimeError(f"{what} wrote a file of another size "
+                           f"than the configuration states ({nbytes})")
+    os.replace(tmp, path)
+
+
+def setup_spans(args, spans: dict):
+    """In a traced run, the program's spans and counters over the block (the
+    set-up) into ``spans["setup_trace"]``; otherwise nothing."""
+    from . import trace as tr
+    return (tr.program_spans(spans, "setup_trace") if args.trace
+            else contextlib.nullcontext())
+
+
+def log_spans(started: float, spans: dict) -> None:
+    """Each recorded block's seconds by span name, on standard error."""
+    for key, summary in spans.items():
+        log(started, f"{key}: " + json.dumps({
+            n: round(v["total_s"], 4) for n, v in sorted(
+                summary["spans"].items(), key=lambda kv: -kv[1]["total_s"])}))
 
 
 def run_cell(args, c: dict, started: float, device=None) -> dict | None:
@@ -105,7 +161,6 @@ def run_cell(args, c: dict, started: float, device=None) -> dict | None:
         gloo = dist.new_group(backend="gloo")
         first = multihost.rank_zero_first(gloo, multihost.DEFAULT_TIMEOUT)
     else:
-        import contextlib
         device = torch.device("cuda", 0) if device is None else torch.device(device)
         rank, first = 0, contextlib.nullcontext()
     on_gpu = device.type == "cuda"
@@ -120,42 +175,46 @@ def run_cell(args, c: dict, started: float, device=None) -> dict | None:
         return torch.cuda.max_memory_allocated(device) if on_gpu else 0
     spp = traffic["spp"]
 
-    with first:
-        path, mesh_dir = prepare(cfg)
-        t0 = time.time()
-        scene = load_scene(path, device=device)
+    spans = {}
+    with setup_spans(args, spans):
+        with first:
+            path, mesh_dir = prepare(cfg)
+            t0 = time.time()
+            scene = load_scene(path, device=device)
+            sync()
+            load_s = time.time() - t0
+        log(started, f"scene loaded in {load_s:.2f} s")
+        w, h = scene.static.width, scene.static.height
+        chunk = (w * h // world if traffic["chunk_rays"] == WHOLE_FRAME
+                 else traffic["chunk_rays"])
+        if world > 1:
+            render_frame = lambda key: multihost.render_image_multihost(
+                scene, spp, key, chunk_rays=chunk, device=device)
+        else:
+            from simplepath_tpu_torch.parallel.mesh import render_image_sharded
+            render_frame = lambda key: render_image_sharded(
+                scene, spp, key, chunk_rays=chunk, device=device)
+        chk = c["check"]
+        plan = check.sample_plan(args.seed, w * h, chk["pixels_per_pass"], device)
+        keys = check.frame_keys(args.seed, check.MAX_PASSES, device)
+        render_frame(check.warm_key(device)).sum().item()
         sync()
-        load_s = time.time() - t0
-    log(started, f"scene loaded in {load_s:.2f} s")
-    w, h = scene.static.width, scene.static.height
-    chunk = w * h // world if traffic["chunk_rays"] == WHOLE_FRAME else traffic["chunk_rays"]
-    if world > 1:
-        render_frame = lambda key: multihost.render_image_multihost(
-            scene, spp, key, chunk_rays=chunk, device=device)
-    else:
-        from simplepath_tpu_torch.parallel.mesh import render_image_sharded
-        render_frame = lambda key: render_image_sharded(
-            scene, spp, key, chunk_rays=chunk, device=device)
-    chk = c["check"]
-    plan = check.sample_plan(args.seed, w * h, chk["pixels_per_pass"], device)
-    keys = check.frame_keys(args.seed, check.MAX_PASSES, device)
-    render_frame(check.warm_key(device)).sum().item()
-    sync()
     setup_peak = peak_bytes()
     if on_gpu:
         torch.cuda.reset_peak_memory_stats(device)
     if world > 1:
         dist.barrier()
 
-    samples, passes = [], 0
+    samples, passes = {}, 0
     readings = bd = None
 
     ends = []
 
-    def one_pass():
+    def one_pass(i: int):
+        """Pass ``i``: the frame under key ``i``, its planned pixels kept."""
         nonlocal passes
-        img = render_frame(keys[passes])
-        samples.append(img.reshape(-1, 3)[plan[passes]])
+        img = render_frame(keys[i])
+        samples[i] = img.reshape(-1, 3)[plan[i]]
         passes += 1
         ends.append(time.time())
 
@@ -163,11 +222,16 @@ def run_cell(args, c: dict, started: float, device=None) -> dict | None:
     setup_s = w0 - started
     log(started, f"set-up done: {setup_s:.2f} s")
     if args.trace:
-        # pass 0 unprofiled, for its wall; pass 1 profiled for the device's
-        # numbers, pass 2 for the names of the host's ops
+        # the program's spans over a pass that no profile has slowed (on an
+        # H100 a pass after one read 12-45 % slower), under key TRACED_PASS;
+        # then pass 0 unprofiled, for its wall; pass 1 profiled for the
+        # device's numbers, pass 2 for the names of the host's ops: the keys
+        # of a run without the traced pass, so the metrics read the same frames
+        with tr.program_spans(spans, "trace"):
+            one_pass(TRACED_PASS)
         sync()
         p0 = time.time()
-        one_pass()
+        one_pass(0)
         sync()
         pass_s = time.time() - p0
         keep = c["trace"]["roofline_calls"] if rank == 0 else []
@@ -175,13 +239,15 @@ def run_cell(args, c: dict, started: float, device=None) -> dict | None:
             with tr.CallSampler(cuda_traverse, keep) as sampler:
                 sync()
                 p0 = time.time()
-                one_pass()
+                one_pass(1)
                 sync()
                 p1 = time.time()
         readings = tr.device_readings(tr.events(prof, os.path.join(
             spec.WORK, f"trace.{c['name']}.{rank}.json")), p1 - p0)
+        log(started, f"profiled pass: {readings['window_s']:.4f} s, the host blocked "
+            f"{readings['blocked_s']:.4f} s, {readings['launches']} launches")
         with tr.profiled(host_ops=True) as prof:
-            one_pass()
+            one_pass(2)
         bd = tr.breakdown(tr.events(prof, os.path.join(
             spec.WORK, f"trace.{c['name']}.{rank}.json")))
         prof = None
@@ -193,7 +259,7 @@ def run_cell(args, c: dict, started: float, device=None) -> dict | None:
             stop = bool(flag.item())
         if stop:
             break
-        one_pass()
+        one_pass(passes)
     sync()
     w1 = time.time()
     peak = peak_bytes()
@@ -201,10 +267,11 @@ def run_cell(args, c: dict, started: float, device=None) -> dict | None:
         f"{[round(t - w0, 3) for t in ends]}")
 
     if readings is not None:
-        readings.update(load_s=load_s, ranks=world, pass_s=pass_s,
-                        paths_profiled=w * h * spp / world)
+        readings.update(load_s=load_s, before_load_s=t0 - started, ranks=world,
+                        pass_s=pass_s, paths_profiled=w * h * spp / world, **spans)
         readings["traversal_calls"] = traversal_calls(sampler, readings)
         sampler = None
+        log_spans(started, spans)
         log(started, "trace read")
     mine = dict(peak=max(peak, setup_peak), window_peak=peak, readings=readings,
                 kind=torch.cuda.get_device_name(device) if on_gpu else "cpu",
@@ -213,7 +280,10 @@ def run_cell(args, c: dict, started: float, device=None) -> dict | None:
     if world > 1:
         everyone = [None] * world
         dist.all_gather_object(everyone, mine, group=gloo)
-    program = torch.cat(samples).cpu() if rank == 0 else None
+        if readings is not None and "trace" in readings:
+            readings["ranks_trace"] = [e["readings"]["trace"] for e in everyone]
+    program = (torch.cat([samples[i] for i in range(passes)]).cpu() if rank == 0
+               else None)
     del samples, scene, render_frame
     gc.collect()
     if on_gpu:
@@ -229,8 +299,8 @@ def run_cell(args, c: dict, started: float, device=None) -> dict | None:
     if held:
         raise Refused(held)
 
-    ref = check.reference_pixels(cfg["scene_text"], mesh_dir, spp, args.seed,
-                                 plan, passes, device)
+    ref = check.reference_pixels(cfg, mesh_dir, spp, args.seed, plan, passes,
+                                 device)
     numbers = check.compare(program, ref, chk["rel"], chk["abs"])
     log(started, f"reference compared: {numbers}")
     e2e = dict(setup_s=setup_s, paths_per_s=passes * w * h * spp / (w1 - w0),
@@ -247,8 +317,6 @@ def run_train_cell(args, c: dict, started: float, device=None) -> dict:
     follows), keeping the first step's own forward radiance of a sample of
     pixels; the window runs the same step on, and the reference then
     follows the first steps from the configuration's own albedo."""
-    import contextlib
-
     import torch
 
     from . import check, trace as tr
@@ -265,27 +333,29 @@ def run_train_cell(args, c: dict, started: float, device=None) -> dict:
     spp, leaves, lr = traffic["spp"], tuple(traffic["leaves"]), traffic["lr"]
     checked = c["check"]["checked_steps"]
 
-    path, mesh_dir = prepare(cfg)
-    t0 = time.time()
-    scene = load_scene(path, device=device)
-    sync()
-    load_s = time.time() - t0
-    log(started, f"scene loaded in {load_s:.2f} s")
-    w, h = scene.static.width, scene.static.height
-    lin = torch.arange(w * h, device=device)
-    xs, ys = lin % w, lin // w
-    target = check.train_target(args.seed, w * h, device)
-    keys = check.frame_keys(args.seed, check.MAX_PASSES, device)
-    pixels = check.sample_plan(args.seed, w * h, c["check"]["pixels"], device)[0]
-    step = make_train_step(scene, spp, lr=lr, device=device, leaves=leaves)
-    params = get_params(scene)
-    states, losses = [], []
-    with check.FirstRender(grad_module, pixels) as first:
-        for t in range(checked):
-            params, loss = step(params, target, xs, ys, keys[t])
-            losses.append(float(loss))
-            states.append(params["mat_albedo"].detach().clone())
-    sync()
+    spans = {}
+    with setup_spans(args, spans):
+        path, mesh_dir = prepare(cfg)
+        t0 = time.time()
+        scene = load_scene(path, device=device)
+        sync()
+        load_s = time.time() - t0
+        log(started, f"scene loaded in {load_s:.2f} s")
+        w, h = scene.static.width, scene.static.height
+        lin = torch.arange(w * h, device=device)
+        xs, ys = lin % w, lin // w
+        target = check.train_target(args.seed, w * h, device)
+        keys = check.frame_keys(args.seed, check.MAX_PASSES, device)
+        pixels = check.sample_plan(args.seed, w * h, c["check"]["pixels"], device)[0]
+        step = make_train_step(scene, spp, lr=lr, device=device, leaves=leaves)
+        params = get_params(scene)
+        states, losses = [], []
+        with check.FirstRender(grad_module, pixels) as first:
+            for t in range(checked):
+                params, loss = step(params, target, xs, ys, keys[t])
+                losses.append(float(loss))
+                states.append(params["mat_albedo"].detach().clone())
+        sync()
     setup_peak = torch.cuda.max_memory_allocated(device) if on_gpu else 0
     if on_gpu:
         torch.cuda.reset_peak_memory_stats(device)
@@ -301,6 +371,12 @@ def run_train_cell(args, c: dict, started: float, device=None) -> dict:
         steps += 1
 
     if args.trace:
+        # the program's spans over a step that no profile has slowed, under
+        # key TRACED_PASS after the checked steps' keys; its parameters are
+        # dropped, so the steps below take the parameters and keys of a run
+        # without it
+        with tr.program_spans(spans, "trace"):
+            step(params, target, xs, ys, keys[checked + TRACED_PASS])
         sync()
         p0 = time.time()
         one_step()
@@ -320,7 +396,9 @@ def run_train_cell(args, c: dict, started: float, device=None) -> dict:
             one_step()
         bd = tr.breakdown(tr.events(prof, os.path.join(spec.WORK, f"trace.{c['name']}.json")))
         prof = None
-        readings.update(load_s=load_s, ranks=1, pass_s=step_s, forward_s=forward_s)
+        readings.update(load_s=load_s, before_load_s=t0 - started, ranks=1,
+                        pass_s=step_s, forward_s=forward_s, **spans)
+        log_spans(started, spans)
     while time.time() - w0 < args.seconds and checked + steps < check.MAX_PASSES:
         one_step()
     sync()
@@ -333,8 +411,8 @@ def run_train_cell(args, c: dict, started: float, device=None) -> dict:
     if on_gpu:
         torch.cuda.empty_cache()
 
-    ref = check.reference_train(cfg["scene_text"], mesh_dir, spp, args.seed, target,
-                                checked, lr, device, pixels=pixels)
+    ref = check.reference_train(cfg, mesh_dir, spp, args.seed, target, checked,
+                                lr, device, pixels=pixels)
     numbers = check.compare_train(dict(losses=losses, albedo=states, pixels=first.kept),
                                   ref, lr, c["check"])
     log(started, f"reference compared: {numbers}")

@@ -9,16 +9,46 @@ frame keys, and a pixel counts as off where a channel differs by more than
 share of the sampled pixels that are off; its limit is the cell's.  A train
 cell compares its first steps' losses, gradient and change, and the first
 step's own forward radiance of ``pixels`` sampled pixels, the same way.
+
+The reference is a package of the benchmark's directory that the
+configuration names under ``"reference"`` (``plainref`` where it names none),
+imported by name (``benchmark/`` is on ``sys.path``).  It imports nothing of
+the program, and has two entry points:
+
+- ``<package>.scene.build(text, mesh_dir, device)``: the scene of the
+  configuration's text, its files read from ``mesh_dir`` (the
+  configuration's work directory, where ``bench.prepare`` wrote them) →
+  an object with ``width``, ``height`` and ``materials.albedo`` (a float32
+  tensor [materials, 3], which a train cell replaces by its leaf);
+- ``<package>.render.render_pixels(s, xs, ys, spp, keys, state_dtype)``:
+  the radiance [N, 3] of the pixels (``xs``, ``ys``) at ``spp`` samples,
+  each under its frame key (``keys`` [N, 2], or one [2] key for all), the
+  radiance state in ``state_dtype`` (None: the configuration's precision;
+  the control passes a lower one), differentiable in ``materials.albedo``.
+
+The frame keys, the warm pass's key and the pixel plan are the harness's
+own (``plainref.core``'s threefry) for every configuration, and are handed
+to the program too.
 """
 
 from __future__ import annotations
 
+import importlib
+
 import numpy as np
 import torch
 
-from plainref import core, render, scene as ref_scene
+from plainref import core
 
 MAX_PASSES = 1024
+DEFAULT_REFERENCE = "plainref"
+
+
+def reference(cfg: dict):
+    """The (scene, render) modules of the configuration's reference."""
+    name = cfg.get("reference", DEFAULT_REFERENCE)
+    return (importlib.import_module(f"{name}.scene"),
+            importlib.import_module(f"{name}.render"))
 
 
 def sample_plan(seed: int, n_pixels: int, per_pass: int, device) -> torch.Tensor:
@@ -41,12 +71,13 @@ def warm_key(device) -> torch.Tensor:
     return core.fold_in(core.prng_key(0, device), 0xFFFFFFFF)
 
 
-def reference_pixels(text: str, mesh_dir: str, spp: int, seed: int,
+def reference_pixels(cfg: dict, mesh_dir: str, spp: int, seed: int,
                      plan: torch.Tensor, passes: int, device,
                      state_dtype=None) -> torch.Tensor:
-    """The reference's radiance [passes * per_pass, 3] of the planned pixels
-    of passes 0 .. passes-1."""
-    s = ref_scene.build(text, mesh_dir, device)
+    """The configuration's reference's radiance [passes * per_pass, 3] of
+    the planned pixels of passes 0 .. passes-1."""
+    ref_scene, render = reference(cfg)
+    s = ref_scene.build(cfg["scene_text"], mesh_dir, device)
     idx = plan[:passes].reshape(-1).to(device)
     keys = frame_keys(seed, passes, device)
     per = plan.shape[1]
@@ -105,18 +136,19 @@ class FirstRender:
         self.module.render_rays = self._orig
 
 
-def reference_train(text: str, mesh_dir: str, spp: int, seed: int,
+def reference_train(cfg: dict, mesh_dir: str, spp: int, seed: int,
                     target: torch.Tensor, steps: int, lr: float, device,
                     state_dtype=None, block: int = 1 << 18,
                     pixels: torch.Tensor | None = None) -> dict:
-    """The reference's first ``steps`` SGD steps on the albedo from the
-    configuration's own: each step's loss (the mean squared error of the
-    whole frame against ``target``, under frame key ``t``), the first
-    step's gradient, the albedo after the last step, and the first step's
-    radiance of the rows ``pixels``.  The frame is rendered and
+    """The configuration's reference's first ``steps`` SGD steps on the
+    albedo from the configuration's own: each step's loss (the mean squared
+    error of the whole frame against ``target``, under frame key ``t``),
+    the first step's gradient, the albedo after the last step, and the first
+    step's radiance of the rows ``pixels``.  The frame is rendered and
     differentiated in blocks of ``block`` pixels.  With ``state_dtype``
     (the control) the render's radiance state is held in that precision."""
-    s = ref_scene.build(text, mesh_dir, device)
+    ref_scene, render = reference(cfg)
+    s = ref_scene.build(cfg["scene_text"], mesh_dir, device)
     n = s.width * s.height
     lin = torch.arange(n, device=device)
     xs, ys = lin % s.width, lin // s.width

@@ -4,8 +4,10 @@ per-layer metrics' readers, each found by its name.
 A cell is ``cells/<name>.json``, its configuration ``configs/<config>.json``,
 its traffic ``traffic/<traffic>.json``; a per-layer metric is read by
 ``metrics/<name>.py`` (a ``read(readings)`` function that returns a number,
-or None where its cell has nothing for it to read).  Which metrics a cell
-reports comes from ``BENCHMARK.json`` at the root of the checkout.
+or None where its cell has nothing for it to read); a configuration's
+generated input file is written by ``generators/<generator>.py`` (a
+``write(path, **args)`` function).  Which metrics a cell reports comes from
+``BENCHMARK.json`` at the root of the checkout.
 """
 
 from __future__ import annotations
@@ -55,11 +57,21 @@ def per_layer(bench: dict, name: str) -> list[dict]:
                 else m["moves"] in e2e)]
 
 
-def reader(metric: str):
-    """The ``read`` function of ``metrics/<metric>.py``."""
-    path = os.path.join(HERE, "metrics", f"{metric}.py")
+def _module(kind: str, name: str):
+    """``<kind>/<name>.py``, loaded from its file."""
+    path = os.path.join(HERE, kind, f"{name}.py")
     spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + metric.replace(".", "_").replace("-", "_"), path)
+        f"bench_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str):
+    """The ``read`` function of ``metrics/<metric>.py``."""
+    return _module("metrics", metric).read
+
+
+def generator(name: str):
+    """The ``write(path, **args)`` function of ``generators/<name>.py``."""
+    return _module("generators", name).write

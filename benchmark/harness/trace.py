@@ -6,12 +6,14 @@ from the profiler's kernels, the traversal's share of it) and
 events) at commit d1155b91, with busy time taken as the union of the
 device's kernel and copy intervals, so that nothing is counted twice.  The
 profiler's trace is written as Chrome trace JSON into the benchmark's work
-directory, read back and removed.
+directory, read back and removed.  The program's own spans and counters
+(``simplepath_tpu_torch.tracing``) are recorded by ``program_spans``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import os
 
@@ -19,6 +21,11 @@ import torch
 
 WINDOW = "bench.window"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the host's calls into CUDA, and those of them in which it waits for the
+# device: the synchronises, and the copies (a copy to pageable memory, as an
+# ``.item()`` makes, returns once the stream has drained to it)
+RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
+BLOCKING = ("Synchronize", "Memcpy")
 CLOSEST = "traverse_kernel<false"
 ANYHIT = "traverse_kernel<true"
 TOP = 10
@@ -42,6 +49,21 @@ def profiled(host_ops: bool):
             yield prof
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def program_spans(into: dict, key: str):
+    """Record the program's spans and counters over the block, and put the
+    record's summary into ``into[key]``; nothing where the program has no
+    ``tracing`` module."""
+    try:
+        tracing = importlib.import_module("simplepath_tpu_torch.tracing")
+    except ImportError:
+        yield
+        return
+    with tracing.recording() as rec:
+        yield
+    into[key] = rec.summary()
 
 
 def events(prof, path: str) -> list:
@@ -72,12 +94,17 @@ def _device(ev: list) -> list:
 
 def device_readings(ev: list, window_s: float) -> dict:
     """Readings of a pass profiled for the device alone, which ``window_s``
-    seconds of the host's clock bracket (times in seconds)."""
+    seconds of the host's clock bracket (times in seconds).  ``blocked_s``
+    is the union of the host's blocking CUDA calls (``BLOCKING``)."""
     dev = _device(ev)
     busy = _union([[s, e] for s, e, _ in dev])
+    blocked = _union([[float(e["ts"]), float(e["ts"]) + float(e["dur"])] for e in ev
+                      if e.get("cat") in RUNTIME_CATS
+                      and any(b in e["name"] for b in BLOCKING)])
     return dict(
         window_s=window_s,
         busy_s=sum(e - s for s, e in busy) * 1e-6,
+        blocked_s=sum(e - s for s, e in blocked) * 1e-6,
         launches=len(dev),
         closest_s=[(e - s) * 1e-6 for s, e, n in dev if CLOSEST in n],
         anyhit_s=[(e - s) * 1e-6 for s, e, n in dev if ANYHIT in n],

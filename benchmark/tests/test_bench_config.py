@@ -67,6 +67,10 @@ def test_config_files_and_reduced_keys():
         for k in cf["reduced"]:
             assert k in data["assumed"], k
         assert cf["name"] in {w["config"] for w in BENCH_JSON["workloads"]}
+        # the reference and the generators a configuration names are the benchmark's own
+        assert os.path.isdir(os.path.join(BENCH, data.get("reference", "plainref")))
+        for entry in data.get("files", {}).values():
+            assert os.path.exists(os.path.join(BENCH, "generators", f"{entry['generator']}.py"))
 
 
 def test_names_and_units():
@@ -93,6 +97,7 @@ def test_metrics_name_layer_moves_and_reader():
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
     for m in BENCH_JSON["per_layer"]:
+        assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
         assert m["layer"] and "\n" not in m["layer"]
         assert m["moves"] in e2e
         assert callable(spec.reader(m["name"]))

@@ -11,17 +11,22 @@ import time
 import pytest
 import torch
 
-from conftest import BENCH
+from conftest import BENCH, run, run_ranks, run_train
 
-SEED = 2 ** 33 + 12345
 KEYS = {"correct", "attempted", "failed", "metrics", "device"}
 
 
-def run(trace=0, seed=SEED, seconds=1.0):
-    from harness import bench, spec
-    args = bench.parse(["--workload", "tiny.render", "--seed", str(seed),
-                        "--seconds", str(seconds), "--trace", str(trace)])
-    return bench.run_cell(args, spec.cell("tiny.render"), time.time(), device="cpu")
+def _references() -> list[str]:
+    """Every reference package a configuration of BENCHMARK.json names, and
+    the default."""
+    from harness import check
+    with open(os.path.join(os.path.dirname(BENCH), "BENCHMARK.json")) as f:
+        configs = json.load(f)["configs"]
+    names = {check.DEFAULT_REFERENCE}
+    for cf in configs:
+        with open(os.path.join(os.path.dirname(BENCH), cf["file"])) as f:
+            names.add(json.load(f).get("reference", check.DEFAULT_REFERENCE))
+    return sorted(names)
 
 
 @pytest.mark.parametrize("trace", [0, 1])
@@ -42,26 +47,32 @@ def test_result_line_keys(tiny_bench, trace, capsys):
         assert set(line["metrics"]) == {"setup_s", "paths_per_s", "peak_mem_gb"}
 
 
-def test_new_cell_config_and_metric_are_new_files(tiny_bench):
+def test_new_cell_config_and_metric_are_new_files(tiny_bench, own_config):
     """The tiny cell, its configuration and a per-layer metric come in as
-    new files and one list entry each, with no harness file edited."""
+    new files and one list entry each, with no harness file edited; so does
+    a configuration that names its own reference package and a generated
+    file, with a cell on it."""
     here = tiny_bench / "benchmark"
+    own = own_config()
     (here / "metrics" / "passes_profiled.tiny.py").write_text(
         "def read(r):\n    return float(r['paths_profiled'])\n")
     bench = json.loads((tiny_bench / "BENCHMARK.json").read_text())
     bench["per_layer"].append({"name": "passes_profiled.tiny", "unit": "paths",
                                "better": "higher", "source": "program_counter",
                                "layer": "bounce loop", "moves": "paths_per_s",
-                               "workloads": ["tiny.render"]})
+                               "workloads": ["tiny.render", own]})
     (tiny_bench / "BENCHMARK.json").write_text(json.dumps(bench))
-    out = run(trace=1)
-    assert out["metrics"]["passes_profiled.tiny"]["value"] == 24 * 16
+    for cell in ("tiny.render", own):
+        out = run(trace=1, cell=cell)
+        assert out["correct"] is True, out["check"]
+        assert out["metrics"]["passes_profiled.tiny"]["value"] == 24 * 16
 
 
-def test_no_jax_after_a_rehearsal_and_reference_imports_no_program(tmp_path):
+@pytest.mark.parametrize("reference", _references())
+def test_no_jax_after_a_rehearsal_and_reference_imports_no_program(tmp_path, reference):
     """In fresh processes: a CPU rehearsal of a cell loads no module named
     jax, jaxlib, flax or simplepath_tpu (names compared whole), and the
-    reference loads nothing of simplepath_tpu_torch."""
+    reference package, every module of it, loads nothing of the program."""
     code = f"""
 import sys, time, pathlib
 sys.path[:0] = [{os.path.join(BENCH, 'tests')!r}]
@@ -79,9 +90,11 @@ print(sorted({{m.split('.')[0] for m in sys.modules}}))
     assert "simplepath_tpu_torch" in mods
     assert not {"jax", "jaxlib", "flax", "simplepath_tpu"} & set(mods)
     code = f"""
-import sys
+import importlib, os, sys
 sys.path[:0] = [{BENCH!r}]
-import plainref.render, plainref.scene, plainref.accel, plainref.core
+for f in sorted(os.listdir(os.path.join({BENCH!r}, {reference!r}))):
+    if f.endswith(".py"):
+        importlib.import_module({reference!r} + "." + f[:-3])
 print(sorted({{m.split('.')[0] for m in sys.modules}}))
 """
     mods = eval(subprocess.run([sys.executable, "-c", code], check=True,
@@ -138,9 +151,9 @@ def _control(cell: str, seed: int, device, passes: int) -> tuple[float, float]:
     w, h = cfg["film"]
     plan = check.sample_plan(seed, w * h, chk["pixels_per_pass"], device)
     spp = c["traffic_spec"]["spp"]
-    ref = check.reference_pixels(cfg["scene_text"], mesh_dir, spp, seed, plan,
+    ref = check.reference_pixels(cfg, mesh_dir, spp, seed, plan,
                                  passes, device)
-    ctl = check.reference_pixels(cfg["scene_text"], mesh_dir, spp, seed, plan,
+    ctl = check.reference_pixels(cfg, mesh_dir, spp, seed, plan,
                                  passes, device, state_dtype=torch.bfloat16)
     return (check.compare(ref, ref, chk["rel"], chk["abs"])["pixels_off_share"],
             check.compare(ctl, ref, chk["rel"], chk["abs"])["pixels_off_share"])
@@ -163,13 +176,6 @@ def test_control_fails_at_the_cells_size(gpu, cell, seed):
     limit = spec.cell(cell)["check"]["limits"]["pixels_off_share"]
     print(f"control {cell} seed {seed}: {ctl!r} against the limit {limit!r}")
     assert same == 0.0 and ctl > 3 * limit
-
-
-def run_train(trace=0, seed=SEED, seconds=0.5):
-    from harness import bench, spec
-    args = bench.parse(["--workload", "tiny.train", "--seed", str(seed),
-                        "--seconds", str(seconds), "--trace", str(trace)])
-    return bench.run_train_cell(args, spec.cell("tiny.train"), time.time(), device="cpu")
 
 
 @pytest.mark.parametrize("trace", [0, 1])
@@ -217,7 +223,7 @@ def _train_control(cell: str, seed: int, device) -> tuple[dict, dict]:
     target = check.train_target(seed, w * h, device)
     pixels = check.sample_plan(seed, w * h, chk["pixels"], device)[0]
     steps = chk["checked_steps"]
-    args = (cfg["scene_text"], mesh_dir, t["spp"], seed, target, steps, t["lr"], device)
+    args = (cfg, mesh_dir, t["spp"], seed, target, steps, t["lr"], device)
     ref = check.reference_train(*args, pixels=pixels)
     ctl = check.reference_train(*args, state_dtype=torch.bfloat16, pixels=pixels)
     as_program = lambda r: dict(losses=r["losses"], pixels=r["pixels"], albedo=[
@@ -271,7 +277,7 @@ def test_train_first_step_pixels_at_the_cells_size(gpu):
         with check.FirstRender(grad, pixels) as first:
             step(grad.get_params(scene), target, lin % w, lin // w, key)
         read = lambda dt: check.reference_pixels(
-            cfg["scene_text"], mesh_dir, t["spp"], seed, pixels[None], 1, gpu, dt)
+            cfg, mesh_dir, t["spp"], seed, pixels[None], 1, gpu, dt)
         ref = read(None)
         sound.append(check.compare(first.kept, ref, chk["rel"], chk["abs"])[
             "pixels_off_share"])
@@ -305,35 +311,9 @@ def test_ranks_refuse_a_forbidden_module_on_any_rank(tiny_bench, planted):
     as under torchrun: rank 0 writes the result only where no rank holds a
     module of JAX or the JAX package once the window has closed (one is
     planted in the rank ``planted``)."""
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    result = tiny_bench / "result.json"
-    code = f"""
-import sys, time, types
-sys.path[:0] = [{os.path.join(BENCH, 'tests')!r}]
-import conftest
-from harness import bench, spec
-spec.HERE, spec.ROOT = {str(tiny_bench / 'benchmark')!r}, {str(tiny_bench)!r}
-spec.WORK = {str(tiny_bench / 'benchmark' / 'work')!r}
-if {planted!r} == int(sys.argv[1]):
-    sys.modules["jax"] = types.ModuleType("jax")
-args = bench.parse(["--workload", "tiny.ranks2", "--seed", "{SEED}", "--seconds", "0.5",
-                    "--rank-worker", "--started", repr(time.time()),
-                    "--result", {str(result)!r}])
-sys.exit(bench.rank_worker(args, spec.cell("tiny.ranks2"), device="cpu"))
-"""
-    procs = []
-    for rank in range(2):
-        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                   RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
-                   LOCAL_WORLD_SIZE="2")
-        procs.append(subprocess.Popen([sys.executable, "-c", code, str(rank)], env=env,
-                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                      text=True))
-    ends = [p.communicate(timeout=240) for p in procs]
-    codes = [p.returncode for p in procs]
+    plant = (f"if {planted!r} == int(sys.argv[1]):\n"
+             "    sys.modules['jax'] = types.ModuleType('jax')\n")
+    codes, ends, result = run_ranks(tiny_bench, 0, plant)
     if planted is None:
         assert codes == [0, 0], ends
         out = json.loads(result.read_text())
